@@ -18,7 +18,15 @@ prints one JSON line per phase:
 5. serve    the port's ``MultiStreamEngine`` with 16 slots, driven as the
             server's tick loop drives it: three streams of 3 s of seeded
             PCM, each must yield a final phrase, every tick must launch the
-            kernel.
+            kernel;
+6. fused_kernels  the fused Conformer-layer kernel against its plain
+            version at full width for every layer kind of the step, at
+            B = 64 and 16, with its time, the plain version's and the bound;
+7. fused_step  the same model and audio as ``step`` through
+            ``ops.fused_encoder.apply_streaming_fused``: 16 fused-layer
+            launches per step and none of the GLU kernel, logprobs checked
+            against the eager step on the card and the CPU plain path for 2
+            streams, with step time, device time, device ops and idle share.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
@@ -28,6 +36,7 @@ package beside this script, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +52,12 @@ BF16_FLOPS = 989e12
 GLU_TOL = 2e-2      # the JAX oracle's tolerance for this kernel (tests/test_glu_ff.py)
 STEP_TOL = 0.1      # bf16 step, card vs CPU: max |Δ logprob| (see PERF.md)
 SERVE_SLOTS = 16
+FUSED_TOL = 0.05    # fused layer, kernel vs plain: max |Δ| of y, conv state, window
+FUSED_SCORES_TOL = 2e-2  # ... and of the scores (tests/test_torch_fused_layer.py)
+# Layer of each kind in ToneConfig() and how many layers of a step are of it.
+FUSED_KINDS = {"stateless_recompute_t10": (0, 1), "stateless_reuse_t10": (1, 6),
+               "stateless_recompute_t5": (7, 1), "stateless_reuse_t5": (8, 6),
+               "stateful_w15": (14, 1), "stateful_w30": (15, 1)}
 
 
 def emit(obj) -> None:
@@ -189,7 +204,7 @@ def phase_step() -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
 
-    profile = _profile_steps(gpu, chunk_dev, state, steps=3)
+    profile = _profile_steps(lambda s: gpu.forward_native(chunk_dev, s)[1], state, steps=3)
     # Idle share against the unprofiled step: the profiler slows the host.
     idle = 1.0 - profile["device_ms_per_step"] / step_ms
     return {"phase": "step", "config": "ToneConfig() bf16", "params": n_params,
@@ -202,8 +217,9 @@ def phase_step() -> dict:
             "device_idle_share": idle, **profile}
 
 
-def _profile_steps(model, chunk_dev, state, steps: int) -> dict:
-    """Device time by kernel over ``steps`` steady steps (torch.profiler)."""
+def _profile_steps(step, state, steps: int) -> dict:
+    """Device time by kernel over ``steps`` steady steps (torch.profiler);
+    ``step(state)`` runs one step and returns the next state."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,7 +227,7 @@ def _profile_steps(model, chunk_dev, state, steps: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            _, state = model.forward_native(chunk_dev, state)
+            state = step(state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -281,6 +297,165 @@ def phase_serve() -> dict:
                         for sid, ps in phrases.items()}}
 
 
+def fused_bound_ms(w, b: int) -> tuple[float, str]:
+    """The card's least time for one fused layer at batch ``b``: weights,
+    activations, state and scores moved once each, against the layer's
+    operations at the bf16 tensor rate."""
+    from tone_tpu_torch.ops.fused_layer import MAT_NAMES
+
+    a = w.args
+    t, win, d, f, h, k = a.t, a.window, a.d, a.f, a.n_heads, a.conv_k
+    tkv, dh = win + t, d // h
+    weights = sum(math.prod(w.shapes[n]) * (2 if n in MAT_NAMES else 4) for n in w.names())
+    acts = b * (2 * t * d * 2 + 2 * (k - 1) * d * 2 + 2 * win * d * 2 + (4 if win else 0)
+                + h * t * tkv * 4)
+    mm = 2 * (3 * t * d * f) + (t + tkv) * d * d * (1 if w.recompute else 0) \
+        + tkv * d * d + t * d * d + 2 * t * d * d + t * d * d
+    flops = b * 2 * (mm + h * t * tkv * dh * (2 if w.recompute else 1) + t * k * d)
+    t_bytes, t_ops = (weights + acts) / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fused_kernels() -> dict:
+    import torch
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.ops.fused_encoder import _layer_static
+    from tone_tpu_torch.ops.fused_layer import (
+        flatten_layer_params,
+        fused_conformer_layer,
+        fused_conformer_layer_plain,
+    )
+
+    cfg = ToneConfig()
+    e = cfg.encoder
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for kind, (layer, _) in FUSED_KINDS.items():
+        st = _layer_static(e, layer)
+        t, win = st["t"], st["window"]
+        w = flatten_layer_params(variables["params"]["encoder"]["layers"][layer],
+                                 variables["batch_stats"]["layers"][layer], e, t=t,
+                                 window=win, recompute=st["recompute"], device="cuda")
+        static = dict(t=t, window=win, recompute=st["recompute"], n_heads=e.n_heads,
+                      rope_dim=e.rope_dim, conv_k=e.conv_kernel_size)
+        for b in (64, 16):
+            def rand(*shape):
+                return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+            args = (rand(b, t, e.d_model), rand(b, e.conv_kernel_size - 1, e.d_model),
+                    rand(b, win, e.d_model) if win else None,
+                    torch.randint(0, win + 1, (b, 1), device="cuda", generator=gen,
+                                  dtype=torch.int32) if win else None,
+                    None if st["recompute"] else
+                    2.0 * torch.randn(b, e.n_heads, t, win + t, device="cuda", generator=gen))
+            got = fused_conformer_layer(*args, w, **static)
+            torch.cuda.synchronize()
+            ref = fused_conformer_layer_plain(*args, w, **static)
+            errs = {}
+            for name, g, r in zip(("y", "new_conv", "new_win", "scores"), got, ref):
+                if r is not None:
+                    errs[name] = (g.float() - r.float()).abs().max().item()
+                    tol = FUSED_SCORES_TOL if name == "scores" else FUSED_TOL
+                    if not errs[name] <= tol:
+                        raise AssertionError(f"fused layer {kind} B={b}: max |kernel - plain| "
+                                             f"of {name} = {errs[name]} > {tol}")
+            ms = cuda_time_ms(lambda: fused_conformer_layer(*args, w, **static), 50)
+            plain_ms = cuda_time_ms(lambda: fused_conformer_layer_plain(*args, w, **static), 10)
+            bound_ms, bound_by = fused_bound_ms(w, b)
+            rows.append({"kind": kind, "layer": layer, "batch": b, "max_abs_err": errs,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+    return {"phase": "fused_kernels", "kernel": "fused_conformer_layer", "d": e.d_model,
+            "tol": FUSED_TOL, "scores_tol": FUSED_SCORES_TOL, "cases": rows}
+
+
+def phase_fused_step() -> dict:
+    import torch
+
+    from tone_tpu_torch.acoustic import StreamingCTCModel
+    from tone_tpu_torch.bridge import to_device
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params, init_streaming_state
+    from tone_tpu_torch.ops.fused_encoder import apply_streaming_fused, prepare_fused_params
+    from tone_tpu_torch.ops.fused_layer import fused_conformer_layer
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    b, n_chunks, n_cpu = 64, 5, 2
+    audio = np.random.default_rng(0).integers(
+        -20000, 20000, (b, cfg.audio_chunk_samples * n_chunks)).astype(np.int32)
+    chunks = [torch.from_numpy(c) for c in np.split(audio, n_chunks, axis=1)]
+
+    eager = StreamingCTCModel(variables, cfg, device="cuda")
+    state = None
+    lp_eager = []
+    for chunk in chunks:
+        lp, state = eager.forward_native(chunk, state)
+        lp_eager.append(lp.cpu().numpy())
+    lp_eager = np.concatenate(lp_eager, axis=1)
+
+    plan = prepare_fused_params(variables, cfg, device="cuda")
+    var_gpu = to_device(variables, "cuda")
+    chunks_dev = [c.to("cuda") for c in chunks]
+    state = init_streaming_state(cfg, b, device="cuda")
+    fused_conformer_layer.launches = glu_ff2.launches = 0
+    lp_fused = []
+    for chunk in chunks_dev:
+        lp, state = apply_streaming_fused(var_gpu, plan, cfg, chunk, state)
+        lp_fused.append(lp)
+    torch.cuda.synchronize()
+    launches, glu_launches = fused_conformer_layer.launches, glu_ff2.launches
+    if launches != cfg.encoder.n_layers * n_chunks or glu_launches:
+        raise AssertionError(f"{launches} fused-layer and {glu_launches} GLU launches "
+                             f"for {n_chunks} fused steps")
+    lp_fused = np.concatenate([lp.cpu().numpy() for lp in lp_fused], axis=1)
+    if lp_fused.shape != lp_eager.shape or not np.isfinite(lp_fused).all():
+        raise AssertionError(f"fused logprobs: shape {lp_fused.shape}, or non-finite")
+    err_eager = float(np.abs(lp_fused - lp_eager).max())
+    if not err_eager <= STEP_TOL:
+        raise AssertionError(f"fused vs eager step on the card: {err_eager} > {STEP_TOL}")
+
+    plan_cpu = prepare_fused_params(variables, cfg, device="cpu")
+    state_cpu = init_streaming_state(cfg, n_cpu)
+    lp_cpu = []
+    for chunk in chunks:
+        lp, state_cpu = apply_streaming_fused(variables, plan_cpu, cfg, chunk[:n_cpu], state_cpu)
+        lp_cpu.append(lp.numpy())
+    lp_cpu = np.concatenate(lp_cpu, axis=1)
+    err_cpu = float(np.abs(lp_fused[:n_cpu] - lp_cpu).max())
+    if not err_cpu <= STEP_TOL:
+        raise AssertionError(f"fused step, card vs CPU: {err_cpu} > {STEP_TOL}")
+
+    def step(s):
+        return apply_streaming_fused(var_gpu, plan, cfg, chunks_dev[-1], s)[1]
+
+    for _ in range(3):
+        state = step(state)
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state = step(state)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    profile = _profile_steps(step, state, steps=3)
+    idle = 1.0 - profile["device_ms_per_step"] / step_ms
+    return {"phase": "fused_step", "config": "ToneConfig() bf16", "batch": b,
+            "chunks": n_chunks, "fused_launches": launches, "glu_launches": glu_launches,
+            "launches_per_step": launches / n_chunks,
+            "max_abs_err_vs_eager": err_eager,
+            "mean_abs_err_vs_eager": float(np.abs(lp_fused - lp_eager).mean()),
+            "cpu_streams": n_cpu, "max_abs_err_vs_cpu": err_cpu,
+            "mean_abs_err_vs_cpu": float(np.abs(lp_fused[:n_cpu] - lp_cpu).mean()),
+            "tol": STEP_TOL, "step_ms": step_ms,
+            "streams_realtime": b * 0.3 / (step_ms / 1e3), "device_idle_share": idle,
+            **profile}
+
+
 def main() -> int:
     import torch
 
@@ -303,16 +478,34 @@ def main() -> int:
     emit(step)
     serve = phase_serve()
     emit(serve)
+    fused = phase_fused_kernels()
+    emit(fused)
+    fused_step = phase_fused_step()
+    emit(fused_step)
 
     # The serve phase is the main path: its full-rate layers give M = 10 * slots.
     main_m = SERVE_SLOTS * 10
     case = next(c for c in kernels["cases"] if c["m"] == main_m)
+    # The fused step is B2's main path: its 16 layers at B = 64, so B2's
+    # times are the mean per launch over a step's mix of layer kinds.
+    step_cases = [(c, FUSED_KINDS[c["kind"]][1]) for c in fused["cases"] if c["batch"] == 64]
+    per_launch = {key: sum(c[key] * n for c, n in step_cases) / 16
+                  for key in ("ms", "plain_ms", "bound_ms")}
     emit({"kernels": [{
         "name": "glu_ff2", "route": "cuda", "source": "tone_tpu_torch/csrc/glu_ff.cu",
         "replaces": "tone_tpu/ops/glu_ff.py:60", "launches": serve["glu_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
         "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-        "bound_by": case["bound_by"], "library_ms": None, "m": main_m}]})
+        "bound_by": case["bound_by"], "library_ms": None, "m": main_m}, {
+        "name": "fused_conformer_layer", "route": "cuda",
+        "source": "tone_tpu_torch/csrc/fused_layer.cu",
+        "replaces": "tone_tpu/ops/fused_layer.py:445",
+        "launches": fused_step["fused_launches"],
+        "max_abs_err": max(v for c in fused["cases"] for v in c["max_abs_err"].values()),
+        **per_launch,
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            c["bound_ms"] * n for c, n in step_cases if c["bound_by"] == by)),
+        "library_ms": None, "shape": "mean per launch over the 16 layers of a B=64 step"}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

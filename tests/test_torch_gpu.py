@@ -94,3 +94,146 @@ def test_tiny_bf16_step_on_card_matches_cpu(cuda):
         lc, sc = cpu.forward_native(chunk, sc)
         assert np.abs(lg.cpu().numpy() - lc.numpy()).max() < 0.05
     assert glu_ff2.launches == before + 4 * 2 * cfg.encoder.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The fused Conformer layer (csrc/fused_layer.cu) against its plain version.
+# ---------------------------------------------------------------------------
+
+from tone_tpu_torch.bridge import to_device  # noqa: E402
+from tone_tpu_torch.ops import fused_encoder as FE  # noqa: E402
+from tone_tpu_torch.ops.fused_layer import (  # noqa: E402
+    flatten_layer_params,
+    fused_conformer_layer,
+    fused_conformer_layer_plain,
+)
+
+TINY = dict(n_layers=5, d_model=64, n_heads=4, rope_dim=8, ff_expansion_factor=2,
+            conv_kernel_size=7, subsampling_conv_channels=(4, 8), mhsa_stateless_layers=3,
+            reduction_position=1, upsample_position=3,
+            should_recompute_att_scores=(True, False, True, True, True))
+# layer of each kind: (tiny model, full model)
+FUSED_KINDS = {"stateless_recompute_t10": (0, 0), "stateless_recompute_t5": (2, 7),
+               "stateless_reuse": (1, 1), "stateful_w15": (3, 14), "stateful_w30": (4, 15)}
+
+
+def _perturbed(tree, gen):
+    """Norm and BatchNorm leaves moved off the identity."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, (dict, list, tuple)):
+                out[k] = _perturbed(v, gen)
+            elif k in ("weight", "scale"):
+                out[k] = v + 0.2 * torch.randn(v.shape, generator=gen)
+            elif k in ("bias", "mean"):
+                out[k] = v + 0.1 * torch.randn(v.shape, generator=gen)
+            elif k == "var":
+                out[k] = 0.5 + torch.rand(v.shape, generator=gen)
+            else:
+                out[k] = v
+        return out
+    return type(tree)(_perturbed(v, gen) for v in tree)
+
+
+@pytest.fixture(scope="module")
+def fused_models():
+    out = {}
+    for width, enc in (("tiny", EncoderConfig(**TINY)), ("full", EncoderConfig())):
+        cfg = ToneConfig(encoder=enc)
+        gen = torch.Generator().manual_seed(0)
+        out[width] = (cfg, _perturbed(init_model_params(gen, cfg), gen))
+    return out
+
+
+def fused_case(cfg, variables, layer, batch, device, seed=0):
+    """(inputs, packed weights, static kwargs) of one layer at ``batch``."""
+    e = cfg.encoder
+    st = FE._layer_static(e, layer)
+    t, window = st["t"], st["window"]
+    gen = torch.Generator().manual_seed(seed)
+    w = flatten_layer_params(variables["params"]["encoder"]["layers"][layer],
+                             variables["batch_stats"]["layers"][layer], e, t=t,
+                             window=window, recompute=st["recompute"], device=device)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(torch.bfloat16).to(device)
+
+    x = rand(batch, t, e.d_model)
+    conv = rand(batch, e.conv_kernel_size - 1, e.d_model, scale=0.5)
+    win = rand(batch, window, e.d_model) if window else None
+    invalid = (torch.randint(0, window + 1, (batch, 1), generator=gen, dtype=torch.int32)
+               .to(device) if window else None)
+    scores = (None if st["recompute"] else
+              (2.0 * torch.randn(batch, e.n_heads, t, window + t, generator=gen)).to(device))
+    static = dict(t=t, window=window, recompute=st["recompute"], n_heads=e.n_heads,
+                  rope_dim=e.rope_dim, conv_k=e.conv_kernel_size)
+    return (x, conv, win, invalid, scores), w, static
+
+
+def fused_errors(got, ref):
+    """{output: (max, mean) |kernel - plain|}."""
+    out = {}
+    for name, g, r in zip(("y", "new_conv", "new_win", "scores"), got, ref):
+        if r is not None:
+            err = (g.float() - r.float()).abs()
+            out[name] = (err.max().item(), err.mean().item())
+    return out
+
+
+@pytest.mark.parametrize("batch", [64, 16, 1])
+@pytest.mark.parametrize("width", ["tiny", "full"])
+@pytest.mark.parametrize("kind", sorted(FUSED_KINDS))
+def test_fused_kernel_matches_plain(cuda, fused_models, kind, width, batch):
+    cfg, variables = fused_models[width]
+    layer = FUSED_KINDS[kind][width == "full"]
+    args, w, static = fused_case(cfg, variables, layer, batch, cuda, seed=batch)
+    before = fused_conformer_layer.launches
+    got = fused_conformer_layer(*args, w, **static)
+    torch.cuda.synchronize()
+    assert fused_conformer_layer.launches == before + 1
+    ref = fused_conformer_layer_plain(*args, w, **static)
+    for name, (mx, mean) in fused_errors(got, ref).items():
+        if name == "scores":
+            assert mx <= 2e-2, (name, mx)
+        else:
+            assert mx <= 0.05 and mean <= 2e-3, (name, mx, mean)
+
+
+@pytest.mark.parametrize("bad", ["float32_x", "strided_x"])
+def test_fused_wrapper_raises_instead_of_falling_back(cuda, fused_models, bad):
+    cfg, variables = fused_models["tiny"]
+    (x, *rest), w, static = fused_case(cfg, variables, 0, 4, cuda)
+    if bad == "float32_x":
+        x = x.float()
+    else:  # every other row of a (4, 2T, D) tensor: (4, T, D), not contiguous
+        x = torch.cat([x, x], dim=1)[:, ::2]
+    before = fused_conformer_layer.launches
+    with pytest.raises((TypeError, ValueError)):
+        fused_conformer_layer(x, *rest, w, **static)
+    assert fused_conformer_layer.launches == before
+
+
+def test_tiny_fused_step_on_card_matches_cpu(cuda, fused_models):
+    from tone_tpu_torch.core.model import init_streaming_state
+
+    cfg, variables = fused_models["tiny"]
+    wav = np.random.default_rng(0).integers(-20000, 20000, (3, 2400 * 4)).astype(np.int32)
+    plans = {dev: FE.prepare_fused_params(variables, cfg, device=dev) for dev in (cuda, "cpu")}
+    var_gpu = to_device(variables, cuda)
+    sg, sc = init_streaming_state(cfg, 3, device=cuda), init_streaming_state(cfg, 3)
+    for i in range(4):
+        chunk = torch.from_numpy(wav[:, i * 2400:(i + 1) * 2400])
+        before = fused_conformer_layer.launches
+        lg, sg = FE.apply_streaming_fused(var_gpu, plans[cuda], cfg, chunk.to(cuda), sg)
+        torch.cuda.synchronize()
+        assert fused_conformer_layer.launches == before + cfg.encoder.n_layers
+        lc, sc = FE.apply_streaming_fused(variables, plans["cpu"], cfg, chunk, sc)
+        assert np.abs(lg.cpu().numpy() - lc.numpy()).max() < 0.05
+
+
+def test_fused_plan_refuses_float32_on_the_card(cuda, fused_models):
+    cfg, variables = fused_models["tiny"]
+    with pytest.raises(TypeError, match="bf16"):
+        FE.prepare_fused_params(variables, ToneConfig(encoder=cfg.encoder,
+                                                      compute_dtype="float32"), device=cuda)
