@@ -21,7 +21,8 @@ prints one JSON line per phase:
             kernel;
 6. fused_kernels  the fused Conformer-layer kernel against its plain
             version at full width for every layer kind of the step, at
-            B = 64 and 16, with its time, the plain version's and the bound;
+            B = 64, 16 and 1, with its time, the plain version's, the bound
+            and the share of the bound it reaches (bound / time);
 7. fused_step  the same model and audio as ``step`` through
             ``ops.fused_encoder.apply_streaming_fused``: 16 fused-layer
             launches per step and none of the GLU kernel, logprobs checked
@@ -341,7 +342,7 @@ def phase_fused_kernels() -> dict:
                                  window=win, recompute=st["recompute"], device="cuda")
         static = dict(t=t, window=win, recompute=st["recompute"], n_heads=e.n_heads,
                       rope_dim=e.rope_dim, conv_k=e.conv_kernel_size)
-        for b in (64, 16):
+        for b in (64, 16, 1):
             def rand(*shape):
                 return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
 
@@ -367,7 +368,7 @@ def phase_fused_kernels() -> dict:
             bound_ms, bound_by = fused_bound_ms(w, b)
             rows.append({"kind": kind, "layer": layer, "batch": b, "max_abs_err": errs,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by})
+                         "bound_by": bound_by, "bound_share": bound_ms / ms})
     return {"phase": "fused_kernels", "kernel": "fused_conformer_layer", "d": e.d_model,
             "tol": FUSED_TOL, "scores_tol": FUSED_SCORES_TOL, "cases": rows}
 

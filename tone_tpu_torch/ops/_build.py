@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
 ``_kernels/lib<name>-<hash>.so`` inside the package; the hash covers the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  The compiler's ``-Xptxas -v`` report (registers, shared
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  The compiler's ``-Xptxas -v`` report (registers, shared
 memory, spills) is kept beside the library as ``.log``.
 """
 
@@ -46,8 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every
+    ``csrc/*.cuh`` header (any of them may be included) and the flags."""
+    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -4,7 +4,8 @@
 ``fused_conformer_layer`` runs FF1, rotary MHSA (score reuse, sliding
 window), the conv module, FF2 and the output RMSNorm for a batch of
 streams.  On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/fused_layer.cu`` (one thread block per stream) or raises; on a CPU
+``csrc/fused_layer.cu`` (one cooperative launch per layer over a grid sized
+to the card, tensor-core tiles of several streams) or raises; on a CPU
 tensor it runs ``fused_conformer_layer_plain``, the same function in plain
 PyTorch with the kernel's rounding points:
 
@@ -31,13 +32,20 @@ the layer's lengths) in another, with their offsets in a ctypes structure
 that the kernel takes by value.  Heads stay ``d_head`` wide and contiguous
 (the TPU kernel's 128-lane head padding and lane-roll RoPE are gone).
 
+``plan_launch`` works out a launch: the grid, every stage's tiles or
+items and the layout of the kernel's scratch buffer, from the tile sizes in
+``csrc/fused_layer_plan.cuh`` (the kernel compiles the same file).
+
 ``fused_conformer_layer.launches`` counts kernel launches only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import re
+from dataclasses import dataclass
 
 import torch
 
@@ -45,8 +53,8 @@ from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.device import resolve_device
 from tone_tpu_torch.ops import _build
 
-__all__ = ["FusedLayerWeights", "flatten_layer_params", "fused_conformer_layer",
-           "fused_conformer_layer_plain"]
+__all__ = ["FusedLayerWeights", "LaunchPlan", "flatten_layer_params", "fused_conformer_layer",
+           "fused_conformer_layer_plain", "ff_split", "kernel_constants", "plan_launch"]
 
 DIM_NAMES = ("t", "window", "d", "f", "n_heads", "rope_dim", "conv_k", "recompute")
 MAT_NAMES = ("ff1_w1", "ff1_wv", "ff1_w2", "wq", "wk", "wv", "wout", "pw1", "dw", "pw2",
@@ -287,6 +295,117 @@ def fused_conformer_layer_plain(x, conv_state, win, invalid, scores_in, w, *, t:
 
 
 # ---------------------------------------------------------------------------
+# The launch plan: grid, stages and scratch, as the kernel walks them.
+# ---------------------------------------------------------------------------
+
+PLAN_HEADER = "fused_layer_plan.cuh"
+SCRATCH_NAMES = ("res", "act", "hid", "qf", "kf", "v", "part")
+
+
+@functools.cache
+def kernel_constants() -> dict[str, int]:
+    """The ``constexpr int FL_*`` tile sizes of ``csrc/fused_layer_plan.cuh``."""
+    text = (_build.SOURCE_DIR / PLAN_HEADER).read_text()
+    return {name: int(value)
+            for name, value in re.findall(r"^constexpr int (FL_\w+) = (\d+);", text, re.M)}
+
+
+class FusedLayerScratch(ctypes.Structure):
+    """Byte offsets of the scratch buffers and its size (``struct
+    FusedLayerScratch`` of csrc/fused_layer.cu)."""
+
+    _fields_ = [(name, ctypes.c_longlong) for name in SCRATCH_NAMES + ("total",)]
+
+
+@dataclass(frozen=True)
+class Stage:
+    """One stage between grid barriers.  ``unit`` is ``"row"`` (one warp
+    per row, rows g, g + warps, ... for global warp g), ``"tile"`` or
+    ``"item"`` (one block each, g, g + grid, ... for block g).  A tile
+    stage's tiles are its ``products`` ((rows, n, bn) each) in order, each
+    numbered row tile major."""
+
+    name: str
+    unit: str
+    count: int
+    products: tuple[tuple[int, int, int], ...] = ()
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    grid: int                       # blocks of the cooperative launch
+    ff_split: int                   # depth slices of the FF down projection
+    stages: tuple[Stage, ...]       # in kernel order; "+" joins loops of one stage
+    scratch: dict[str, tuple[int, int]]  # name -> (byte offset, bytes)
+    scratch_bytes: int
+
+    def scratch_struct(self) -> FusedLayerScratch:
+        return FusedLayerScratch(total=self.scratch_bytes,
+                                 **{n: off for n, (off, _) in self.scratch.items()})
+
+
+def ff_split(f: int) -> int:
+    """Depth slices of the FF down projection: the most, up to
+    FL_FF_SPLIT, that cut d_ff into whole FL_BK steps."""
+    c = kernel_constants()
+    return max(s for s in range(1, c["FL_FF_SPLIT"] + 1) if f % (s * c["FL_BK"]) == 0)
+
+
+def plan_launch(args: FusedLayerArgs, batch: int, card_blocks: int) -> LaunchPlan:
+    """The launch of one layer at ``batch`` streams on a card that holds
+    ``card_blocks`` resident blocks of the kernel (SMs x blocks per SM).
+    The grid is the card's, cut to the most blocks any stage can use."""
+    c = kernel_constants()
+    bm, warps, bn, bn_ff = c["FL_BM"], c["FL_THREADS"] // 32, c["FL_BN"], c["FL_BN_FF"]
+    t, w, d, f, h = args.t, args.window, args.d, args.f, args.n_heads
+    m, mkv, split = batch * t, batch * (w + t), ff_split(args.f)
+
+    def tiles(name, *products):
+        count = sum(-(-rows // bm) * (n // width) for rows, n, width in products)
+        return Stage(name, "tile", count, tuple(products))
+
+    def ff(i):
+        return [tiles(f"ff{i}_up", (m, f, bn_ff)),
+                tiles(f"ff{i}_down", *[(m, d, bn_ff)] * split)]
+
+    # q; then k and v as one product (two weights sharing each A tile)
+    q = [(m, d, bn)] if args.recompute else []
+    stages = (
+        Stage("norm_ff1", "row", m), *ff(1),
+        Stage("norm_att", "row", m), Stage("+window_shift", "row", batch * (w - t) if w else 0),
+        tiles("qkv", *q, (mkv, d, bn)),
+        Stage("attention", "item", batch * h),
+        tiles("out", (m, d, bn)),
+        Stage("norm_conv", "row", m),
+        tiles("pw1", (m, d, bn)),
+        Stage("conv", "item", batch * -(-d // c["FL_CONV_COLS"])),
+        tiles("pw2", (m, d, bn)),
+        Stage("norm_ff2", "row", m), *ff(2),
+        Stage("norm_out", "row", m),
+    )
+    need = max(-(-s.count // warps) if s.unit == "row" else s.count for s in stages)
+    sizes = {"res": m * d * 4, "act": m * d * 2, "hid": m * max(f, d) * 2,
+             "qf": m * d * 4 if args.recompute else 0,
+             "kf": mkv * d * 4 if args.recompute else 0, "v": mkv * d * 2,
+             "part": split * m * d * 4}
+    align, offset, scratch = c["FL_SCRATCH_ALIGN"], 0, {}
+    for name in SCRATCH_NAMES:
+        scratch[name] = (offset, sizes[name])
+        offset += -(-sizes[name] // align) * align
+    return LaunchPlan(grid=max(1, min(card_blocks, need)), ff_split=split, stages=stages,
+                      scratch=scratch, scratch_bytes=offset)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_params(dims: tuple[int, ...], batch: int,
+                   blocks: int) -> tuple[int, int, int, FusedLayerScratch]:
+    """(grid, FF down slices, scratch bytes, scratch struct) of plan_launch,
+    worked out once per layer shape, batch and card."""
+    plan = plan_launch(FusedLayerArgs(**dict(zip(DIM_NAMES, dims))), batch, blocks)
+    return plan.grid, plan.ff_split, plan.scratch_bytes, plan.scratch_struct()
+
+
+# ---------------------------------------------------------------------------
 # The kernel wrapper.
 # ---------------------------------------------------------------------------
 
@@ -296,9 +415,32 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.tone_fused_layer
     if fn.argtypes is None:  # declare once: ctypes would pass ints as 32-bit
         fn.argtypes = ([ctypes.c_void_p] * 7 + [FusedLayerArgs, ctypes.c_int]
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 5
+                       + [FusedLayerScratch, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        occ = lib.tone_fused_layer_occupancy
+        occ.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        occ.restype = ctypes.c_int
     return lib
+
+
+_CARD_BLOCKS: dict[int, int] = {}
+
+
+def card_blocks(device: torch.device) -> int:
+    """Resident blocks of the kernel on ``device`` (SMs x blocks per SM, from
+    the occupancy query), asked once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _CARD_BLOCKS:
+        per_sm, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            err = _kernel_lib().tone_fused_layer_occupancy(ctypes.byref(per_sm),
+                                                           ctypes.byref(sms))
+        if err or per_sm.value < 1:
+            raise RuntimeError(f"fused layer kernel cannot launch cooperatively on {device} "
+                               f"(cudaError {err}, {per_sm.value} blocks per SM)")
+        _CARD_BLOCKS[index] = per_sm.value * sms.value
+    return _CARD_BLOCKS[index]
 
 
 def _require(name: str, t: torch.Tensor | None, shape, dtype, device) -> None:
@@ -311,13 +453,16 @@ def _require(name: str, t: torch.Tensor | None, shape, dtype, device) -> None:
         raise TypeError(f"fused layer kernel: {name} must be {dtype}, not {t.dtype}")
     if t.device != device or not t.is_contiguous():
         raise ValueError(f"fused layer kernel: {name} must be a contiguous tensor on {device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"fused layer kernel: {name} must start 16-byte aligned")
 
 
 def fused_conformer_layer(x, conv_state, win, invalid, scores_in, w, *, t: int, window: int,
                           recompute: bool, n_heads: int, rope_dim: int, conv_k: int):
     """One fused Conformer layer; arguments and results as
     :func:`fused_conformer_layer_plain`.  CUDA tensors must be bf16 (x,
-    conv state, window), int32 (invalid) and float32 (scores), contiguous."""
+    conv state, window), int32 (invalid) and float32 (scores), contiguous
+    and 16-byte aligned."""
     if x.device.type == "cpu":
         return fused_conformer_layer_plain(
             x, conv_state, win, invalid, scores_in, w, t=t, window=window,
@@ -344,15 +489,19 @@ def fused_conformer_layer(x, conv_state, win, invalid, scores_in, w, *, t: int, 
               if recompute else scores_in)
     if b == 0:
         return y, new_conv, new_win, scores
+    grid, split, scratch_bytes, layout = _launch_params(
+        tuple(getattr(w.args, n) for n in DIM_NAMES), b, card_blocks(dev))
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     # Pointers the kernel does not read for this layer are passed as NULL.
     win_p, inv_p, new_win_p = ((win.data_ptr(), invalid.data_ptr(), new_win.data_ptr())
                                if window else (None, None, None))
     scores_in_p, scores_p = (None, scores.data_ptr()) if recompute else (scores.data_ptr(), None)
-    err = _kernel_lib().tone_fused_layer(
-        x.data_ptr(), conv_state.data_ptr(), win_p, inv_p, scores_in_p,
-        w.mats.data_ptr(), w.vecs.data_ptr(), w.args, b,
-        y.data_ptr(), new_conv.data_ptr(), new_win_p, scores_p,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the kernel launches on the current device
+        err = _kernel_lib().tone_fused_layer(
+            x.data_ptr(), conv_state.data_ptr(), win_p, inv_p, scores_in_p,
+            w.mats.data_ptr(), w.vecs.data_ptr(), w.args, b,
+            y.data_ptr(), new_conv.data_ptr(), new_win_p, scores_p,
+            scratch.data_ptr(), layout, split, grid, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused layer kernel launch failed (cudaError {err})")
     fused_conformer_layer.launches += 1
