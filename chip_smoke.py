@@ -9,8 +9,11 @@ prints one JSON line per phase:
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA source under tone_tpu_torch/csrc, built in parallel;
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            the shapes the serving path gives it, with its time, the plain
-            version's time and the card's bound for the same work;
+            the shapes the serving path gives it, with its time (CUDA
+            events, and its own device time from the profiler), the plain
+            version's time, the card's bound for the same work, the share
+            of the bound it reaches and, as a yardstick, cuBLAS's time for
+            the product alone (``torch.addmm`` on a precomputed gate);
 4. step     the full-width bf16 ``ToneConfig()`` (random weights, seed 0)
             through ``StreamingCTCModel.forward_native`` for 64 streams over
             5 chunks, checked against the port on the CPU for 2 streams;
@@ -18,7 +21,7 @@ prints one JSON line per phase:
 5. serve    the port's ``MultiStreamEngine`` with 16 slots, driven as the
             server's tick loop drives it: three streams of 3 s of seeded
             PCM, each must yield a final phrase, every tick must launch the
-            kernel;
+            kernel; the first ticks are profiled for device time per tick;
 6. fused_kernels  the fused Conformer-layer kernel against its plain
             version at full width for every layer kind of the step, at
             B = 64, 16 and 1, with its time, the plain version's, the bound
@@ -53,6 +56,7 @@ BF16_FLOPS = 989e12
 GLU_TOL = 2e-2      # the JAX oracle's tolerance for this kernel (tests/test_glu_ff.py)
 STEP_TOL = 0.1      # bf16 step, card vs CPU: max |Δ logprob| (see PERF.md)
 SERVE_SLOTS = 16
+SERVE_PROFILED_TICKS = 3
 FUSED_TOL = 0.05    # fused layer, kernel vs plain: max |Δ| of y, conv state, window
 FUSED_SCORES_TOL = 2e-2  # ... and of the scores (tests/test_torch_fused_layer.py)
 # Layer of each kind in ToneConfig() and how many layers of a step are of it.
@@ -86,6 +90,26 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sass_loads(lib) -> dict | None:
+    """How the compiled kernels load: ldmatrix (LDSM), generic (LD.E) and
+    shared (LDS) loads, tensor-core instructions (HMMA), counted in the
+    library's SASS (cuobjdump), or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    from tone_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {op: len(re.findall(pattern, sass)) for op, pattern in (
+        ("LDSM", r"\bLDSM\b"), ("LD.E", r"\bLD\.E"), ("LDS", r"\bLDS\b"),
+        ("HMMA", r"\bHMMA\b"))}
+
+
 def phase_build() -> dict:
     from tone_tpu_torch.ops import _build
 
@@ -99,7 +123,9 @@ def phase_build() -> dict:
     ptxas = {lib.stem: [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
                         if "registers" in ln or "spill" in ln]
              for lib in libs}
-    return {"phase": "build", "sources": names, "seconds": seconds, "ptxas": ptxas}
+    sass = {lib.stem: sass_loads(lib) for lib in libs}
+    return {"phase": "build", "sources": names, "seconds": seconds, "ptxas": ptxas,
+            "sass": sass}
 
 
 def glu_ff_cases(device):
@@ -124,25 +150,55 @@ def glu_ff_bound_ms(m: int, f: int, d: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_time_ms(fn, iters: int, name: str | None = None) -> float:
+    """Device time per call of ``fn`` from torch.profiler over ``iters``
+    back-to-back calls: the kernels whose name holds ``name``, or all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and (name is None or name in e.key)]
+    if not events:
+        raise AssertionError(f"the profiler saw no device time for {name or 'the call'}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+
+
 def phase_kernels() -> dict:
     import torch
 
-    from tone_tpu_torch.ops.glu_ff import glu_ff2, glu_ff2_plain
+    from tone_tpu_torch.ops.glu_ff import _plan, _sm_count, glu_ff2, glu_ff2_plain
 
     rows = []
     for m, av, p2 in glu_ff_cases("cuda"):
+        f, d = p2["w"].shape
         y = glu_ff2(av, p2)
         torch.cuda.synchronize()
         ref = glu_ff2_plain(av, p2)
         err = (y.float() - ref.float()).abs().max().item()
         if not err <= GLU_TOL:
             raise AssertionError(f"glu_ff2 M={m}: max |kernel - plain| = {err} > {GLU_TOL}")
-        ms = cuda_time_ms(lambda: glu_ff2(av, p2), 200)
+        event_ms = cuda_time_ms(lambda: glu_ff2(av, p2), 200)
+        ms = device_time_ms(lambda: glu_ff2(av, p2), 200, "glu_ff2")
         plain_ms = cuda_time_ms(lambda: glu_ff2_plain(av, p2), 50)
-        bound_ms, bound_by = glu_ff_bound_ms(m, p2["w"].shape[0], p2["w"].shape[1])
-        rows.append({"m": m, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+        # cuBLAS's product alone, on the gate computed beforehand: a yardstick
+        a32 = av[:, :f].float()
+        g = (a32 * torch.sigmoid(a32)).to(torch.bfloat16) * av[:, f:]
+        b16 = p2["b"].to(torch.bfloat16)
+        gemm_ms = device_time_ms(lambda: torch.addmm(b16, g, p2["w"]), 200)
+        bound_ms, bound_by = glu_ff_bound_ms(m, f, d)
+        plan = _plan(m, f, d, _sm_count(torch.cuda.current_device()))
+        rows.append({"m": m, "max_abs_err": err, "ms": ms, "event_ms": event_ms,
+                     "plain_ms": plain_ms, "gemm_ms": gemm_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share": bound_ms / ms,
+                     "tile": "big" if plan.big else "small", "grid": list(plan.grid)})
     return {"phase": "kernels", "kernel": "glu_ff2", "f": 1536, "d": 384, "tol": GLU_TOL,
+            "ms": "device time per launch (torch.profiler), back to back",
             "cases": rows}
 
 
@@ -233,16 +289,19 @@ def _profile_steps(step, state, steps: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in events)
+    glu_us = sum(e.self_device_time_total for e in events if "glu_ff2" in e.key)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {"profiled_steps": steps, "profiled_wall_ms": wall_ms,
             "device_ops_per_step": sum(e.count for e in events) / steps,
             "device_ms_per_step": device_us / 1e3 / steps,
+            "glu_device_ms_per_step": glu_us / 1e3 / steps,
             "top_device_kernels": [[e.key[:60], e.self_device_time_total / 1e3 / steps,
                                     e.count // steps] for e in top]}
 
 
 def phase_serve() -> dict:
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from tone_tpu_torch.config import ToneConfig
     from tone_tpu_torch.core.model import init_model_params
@@ -271,14 +330,27 @@ def phase_serve() -> dict:
         futures = {sid: [] for sid in sids}
         done: set[int] = set()
         tick_ms = []
+        # The first ticks run under the profiler (device time per tick); the
+        # median tick time is taken over the others.
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
         while len(done) < len(sids):
             t0 = time.perf_counter()
             for sid, futs in engine.tick().items():
                 futures[sid].extend(futs)
             tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(tick_ms) == SERVE_PROFILED_TICKS:
+                torch.cuda.synchronize()
+                prof.stop()
             done.update(engine.pop_finished())
             if len(tick_ms) > 100:
                 raise AssertionError("streams did not finish within 100 ticks")
+        if len(tick_ms) <= SERVE_PROFILED_TICKS:
+            raise AssertionError(f"only {len(tick_ms)} ticks: too few to profile")
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_PROFILED_TICKS
+        glu_ms = sum(e.self_device_time_total for e in events
+                     if "glu_ff2" in e.key) / 1e3 / SERVE_PROFILED_TICKS
         ticks = engine.stats.ticks - ticks0
         launches = glu_ff2.launches
         if launches != 32 * ticks:
@@ -293,7 +365,10 @@ def phase_serve() -> dict:
         if times != sorted(times) or any(t < 0 for t in times):
             raise AssertionError(f"stream {sid}: phrase times out of order: {times}")
     return {"phase": "serve", "slots": SERVE_SLOTS, "streams": len(sids), "ticks": ticks,
-            "glu_launches": launches, "tick_ms_median": float(np.median(tick_ms)),
+            "glu_launches": launches,
+            "tick_ms_median": float(np.median(tick_ms[SERVE_PROFILED_TICKS:])),
+            "profiled_ticks": SERVE_PROFILED_TICKS, "device_ms_per_tick": device_ms,
+            "glu_device_ms_per_tick": glu_ms,
             "phrases": {str(sid): [[p.text[:40], p.start_time, p.end_time] for p in ps]
                         for sid, ps in phrases.items()}}
 
@@ -497,7 +572,8 @@ def main() -> int:
         "replaces": "tone_tpu/ops/glu_ff.py:60", "launches": serve["glu_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
         "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-        "bound_by": case["bound_by"], "library_ms": None, "m": main_m}, {
+        "bound_by": case["bound_by"], "bound_share": case["bound_share"], "library_ms": None,
+        "event_ms": case["event_ms"], "gemm_ms": case["gemm_ms"], "m": main_m}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",

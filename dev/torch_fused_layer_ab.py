@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Times the fused Conformer-layer kernel (kernel B2) of checkouts of the
-PyTorch port against each other, on one GPU.
+"""Times a kernel of the PyTorch port in several checkouts against each
+other, on one GPU: the fused Conformer layer (kernel B2, the default) or the
+fused GLU feed-forward (kernel B1).
 
     python3 dev/torch_fused_layer_ab.py --roots OLD NEW NEW OLD [--batches 64 16 1]
+    python3 dev/torch_fused_layer_ab.py --kernel glu_ff2 --roots OLD NEW NEW OLD \
+        [--ms 80 160 320 640 2560]
 
 Each root is a directory that holds a ``tone_tpu_torch`` package (a checkout
 or a ``git archive`` of one).  The roots run in the order given, each in a
-process of its own that builds its kernel, on the same full-width
-``ToneConfig()`` weights (random, seed 0) and the same seeded inputs, for the
-six layer kinds of the step at each batch.  One JSON line per (root, kind,
-batch) gives the mean of back-to-back launches timed by CUDA events
-(``ms``; the host's share included where the host is slower) and the
-kernel's own mean device time from ``torch.profiler`` (``device_ms``).
+process of its own that builds its kernel, on the same inputs: for B2 the
+full-width ``ToneConfig()`` weights (random, seed 0) and seeded inputs for
+the six layer kinds of the step at each batch; for B1 seeded av, W2 and b
+at F = 1536, D = 384 for each row count M.  One JSON line per (root, kind,
+batch) or (root, M) gives the mean of back-to-back launches timed by CUDA
+events (``ms``; the host's share included where the host is slower) and
+the kernel's own mean device time from ``torch.profiler`` (``device_ms``).
 The first line names the card and its power limit (nvidia-smi).
 
-With ``--stages`` each root's kernel is built with ``-DFL_STAGE_CLOCK`` (a
-root whose ``csrc/fused_layer.cu`` has the stage clock), and each line also
-gives ``stages_us``: the time between the grid barriers of the last launch,
-stage by stage, read from the global timer by block 0.
+With ``--stages`` (B2 only) each root's kernel is built with
+``-DFL_STAGE_CLOCK`` (a root whose ``csrc/fused_layer.cu`` has the stage
+clock), and each line also gives ``stages_us``: the time between the grid
+barriers of the last launch, stage by stage, read from the global timer by
+block 0.
 """
 
 from __future__ import annotations
@@ -37,13 +42,62 @@ KINDS = {"stateless_recompute_t10": 0, "stateless_reuse_t10": 1,
          "stateful_w15": 14, "stateful_w30": 15}
 
 
+def time_launches(run, iters: int, kernel_name: str) -> tuple[float, float]:
+    """(CUDA-event ms, profiler device ms) per launch of ``run`` over
+    ``iters`` back-to-back launches, after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    kernel = [ev for ev in prof.key_averages()
+              if ev.device_type.name == "CUDA" and kernel_name in ev.key]
+    device_ms = (sum(ev.self_device_time_total for ev in kernel) / 1e3
+                 / max(1, sum(ev.count for ev in kernel)))
+    return start.elapsed_time(end) / iters, device_ms
+
+
+def glu_worker(root: str, ms: list[int], iters: int) -> None:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from tone_tpu_torch.device import resolve_device
+    from tone_tpu_torch.ops import glu_ff as G
+
+    if not G.__file__.startswith(root.rstrip("/") + "/"):
+        raise RuntimeError(f"imported {G.__file__}, not the package under {root}")
+    resolve_device("cuda")
+    f, d = 1536, 384
+    for m in ms:
+        gen = torch.Generator(device="cuda").manual_seed(m)
+        av = torch.randn(m, 2 * f, device="cuda", generator=gen).to(torch.bfloat16)
+        p2 = {"w": (torch.randn(f, d, device="cuda", generator=gen) * 0.02).to(torch.bfloat16),
+              "b": torch.randn(d, device="cuda", generator=gen) * 0.01}
+        err = (G.glu_ff2(av, p2).float() - G.glu_ff2_plain(av, p2).float()).abs().max().item()
+        event_ms, device_ms = time_launches(lambda: G.glu_ff2(av, p2), iters, "glu_ff2_kernel")
+        print(json.dumps({"root": root, "kernel": "glu_ff2", "m": m, "ms": event_ms,
+                          "device_ms": device_ms, "max_abs_err": err}), flush=True)
+
+
 def worker(root: str, batches: list[int], iters: int, stages: bool) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import ctypes
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tone_tpu_torch.ops import _build
 
@@ -86,26 +140,9 @@ def worker(root: str, batches: list[int], iters: int, stages: bool) -> None:
             def run():
                 return FL.fused_conformer_layer(*args, w, **static)
 
-            for _ in range(5):
-                run()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                run()
-            end.record()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    run()
-                torch.cuda.synchronize()
-            kernel = [ev for ev in prof.key_averages()
-                      if ev.device_type.name == "CUDA" and "fused_layer_kernel" in ev.key]
-            device_ms = (sum(ev.self_device_time_total for ev in kernel) / 1e3
-                         / max(1, sum(ev.count for ev in kernel)))
+            event_ms, device_ms = time_launches(run, iters, "fused_layer_kernel")
             row = {"root": root, "kind": kind, "layer": layer, "batch": b,
-                   "ms": start.elapsed_time(end) / iters, "device_ms": device_ms}
+                   "ms": event_ms, "device_ms": device_ms}
             if stages:
                 ns = (ctypes.c_ulonglong * (len(STAGES) + 1))()
                 if FL._kernel_lib().tone_fused_layer_stage_ns(ns):
@@ -117,22 +154,32 @@ def worker(root: str, batches: list[int], iters: int, stages: bool) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("fused_layer", "glu_ff2"), default="fused_layer")
     ap.add_argument("--roots", nargs="+", required=True)
-    ap.add_argument("--batches", nargs="+", type=int, default=[64, 16, 1])
+    ap.add_argument("--batches", nargs="+", type=int, default=[64, 16, 1],
+                    help="fused_layer: streams per launch")
+    ap.add_argument("--ms", nargs="+", type=int, default=[80, 160, 320, 640, 2560],
+                    help="glu_ff2: rows per launch")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--stages", action="store_true",
-                    help="build with the stage clock and report time per stage")
+                    help="fused_layer: build with the stage clock and report time per stage")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args()
+    if a.stages and a.kernel != "fused_layer":
+        ap.error("--stages applies to the fused_layer kernel")
     if a.worker:
-        worker(a.worker, a.batches, a.iters, a.stages)
+        if a.kernel == "glu_ff2":
+            glu_worker(a.worker, a.ms, a.iters)
+        else:
+            worker(a.worker, a.batches, a.iters, a.stages)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(json.dumps({"nvidia_smi": smi.stdout.strip()}), flush=True)
     for root in a.roots:
-        subprocess.run([sys.executable, __file__, "--roots", root, "--worker", root,
-                        "--batches", *map(str, a.batches), "--iters", str(a.iters),
+        subprocess.run([sys.executable, __file__, "--kernel", a.kernel, "--roots", root,
+                        "--worker", root, "--batches", *map(str, a.batches),
+                        "--ms", *map(str, a.ms), "--iters", str(a.iters),
                         *(["--stages"] if a.stages else [])], check=True)
     return 0
 

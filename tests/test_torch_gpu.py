@@ -36,16 +36,45 @@ def _case(device, m, f=F, d=D, seed=0):
     return av, p2
 
 
-@pytest.mark.parametrize("m", [2560, 640, 320, 37, 10, 1])
-def test_kernel_matches_plain(cuda, m):
-    av, p2 = _case(cuda, m, seed=m)
+# The step's and the serving path's row counts (the small tile below 1024
+# rows, the big one from there, depth splits 2-8), ragged tails, 8448 rows
+# (one block per output tile: no split), and the tiny widths of the CPU
+# tests (D = 64 is one ragged column tile).
+@pytest.mark.parametrize("f, d", [(F, D), (128, 64), (256, 128)])
+@pytest.mark.parametrize("m", [8448, 2560, 1280, 640, 320, 160, 80, 37, 10, 1])
+def test_kernel_matches_plain(cuda, m, f, d):
+    av, p2 = _case(cuda, m, f=f, d=d, seed=m)
     before = glu_ff2.launches
     y = glu_ff2(av, p2)
     torch.cuda.synchronize()
     assert glu_ff2.launches == before + 1
-    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, D)
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, d)
     err = (y.float() - glu_ff2_plain(av, p2).float()).abs().max().item()
     assert err <= 2e-2  # the JAX oracle's tolerance (tests/test_glu_ff.py)
+
+
+@pytest.mark.parametrize("m", [2560, 640, 160, 80, 10])
+def test_kernel_is_deterministic(cuda, m):
+    """The depth slices' partials are added in a fixed order (no atomics):
+    two launches on the same inputs agree bit for bit."""
+    av, p2 = _case(cuda, m, seed=7)
+    first, second = glu_ff2(av, p2), glu_ff2(av, p2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_kernel_with_weights_cold_in_l2(cuda):
+    """The first of 48 W2 matrices (57 MB in all, more than the 50 MB L2),
+    run again after the other 47, still matches its plain version."""
+    av, _ = _case(cuda, 160, seed=3)
+    weights = [_case(cuda, 1, seed=100 + i)[1] for i in range(48)]
+    assert sum(p["w"].numel() * 2 for p in weights) > 50e6
+    for p2 in weights:
+        glu_ff2(av, p2)
+    y = glu_ff2(av, weights[0])
+    torch.cuda.synchronize()
+    err = (y.float() - glu_ff2_plain(av, weights[0]).float()).abs().max().item()
+    assert err <= 2e-2
 
 
 def test_kernel_keeps_leading_dims_and_skips_empty(cuda):
@@ -60,7 +89,7 @@ def test_kernel_keeps_leading_dims_and_skips_empty(cuda):
 
 @pytest.mark.parametrize("bad", ["float32_av", "strided_av", "ragged_f"])
 def test_kernel_wrapper_raises_instead_of_falling_back(cuda, bad):
-    if bad == "ragged_f":  # F = 48 is not a multiple of the kernel's F tile
+    if bad == "ragged_f":  # F = 48 is not a multiple of the kernel's depth stage
         av, p2 = _case(cuda, 10, f=48, d=64)
     else:
         av, p2 = _case(cuda, 10)

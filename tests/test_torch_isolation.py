@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: nothing under tone_tpu_torch/, and nothing
-in chip_smoke.py, imports jax or the JAX package tone_tpu."""
+in chip_smoke.py or the port's dev scripts (dev/torch_*.py), imports jax or
+the JAX package tone_tpu."""
 
 import ast
 import subprocess
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "tone_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "tone_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "dev").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tone_tpu")
 
 
