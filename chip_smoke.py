@@ -30,7 +30,21 @@ prints one JSON line per phase:
             ``ops.fused_encoder.apply_streaming_fused``: 16 fused-layer
             launches per step and none of the GLU kernel, logprobs checked
             against the eager step on the card and the CPU plain path for 2
-            streams, with step time, device time, device ops and idle share.
+            streams, with step time, device time, device ops and idle share;
+8. beam_decode  ``DeviceBeamSearchCTCDecoder`` on the card at the serving
+            defaults (beam width 32, n-best 8, max_len 2048, 64 rows per
+            call) on seeded blank-heavy logprobs in every frame bucket 64 …
+            2048, LM-free, with an order-3 ARPA LM (estimated by the port
+            from a seeded synthetic corpus) and with hotwords, each held
+            against the same decoder on the CPU (equal top texts, best scores
+            within 1e-3); the LM once more as a KenLM probing binary (equal
+            texts); ms and device ms per call, launches per frame, idle share;
+9. serve_beam  the ``serve`` phase's engine with the ``beam_decode`` LM
+            decoder for finals, the interim device beam arena (width 8), word
+            timestamps, one stream with request hotwords and one with n-best
+            4: every stream yields a final, phrase and word times are
+            ordered, every tick launches the GLU kernel 32 times, and every
+            final's text equals the port's CPU decoder on that phrase.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
@@ -532,6 +546,250 @@ def phase_fused_step() -> dict:
             **profile}
 
 
+BEAM_WIDTH, BEAM_NBEST, BEAM_ROWS = 32, 8, 64
+BEAM_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+BEAM_SCORE_TOL = 1e-3   # best score, card vs CPU
+BEAM_TIE = 1e-5         # two beams closer than this may rank either way
+BEAM_HOTWORDS = ["да", "нет", "привет мир", "колокол"]
+LONGEST_PHRASE = 2000 + 2 * 3   # the splitter's force split plus its margins
+
+
+def beam_logprobs(seed: int, rows: int, t_pad: int) -> list[np.ndarray]:
+    """Blank-heavy random phrase logprobs, lengths in (t_pad/2, t_pad]
+    (at most the splitter's longest phrase)."""
+    rng = np.random.default_rng(seed)
+    hi = min(t_pad, LONGEST_PHRASE)
+    out = []
+    for n in rng.integers(t_pad // 2 + 1, hi + 1, rows):
+        logits = rng.normal(0.0, 2.5, (n, 35))
+        logits[:, 34] += 4.0                          # blank
+        logits[:, 33] += rng.random(n) * 2.0          # space
+        x = logits - logits.max(-1, keepdims=True)
+        out.append((x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32))
+    return out
+
+
+def beam_lm_tables(seed: int = 0):
+    """An order-3 modified-Kneser-Ney LM over a seeded synthetic corpus."""
+    from tone_tpu_torch.decoding.estimate import estimate_ngram_lm
+
+    rng = np.random.default_rng(seed)
+    letters = list("абвгдеёжзийклмнопрстуфхцчшщъыьэюя")
+    words = ["".join(rng.choice(letters, rng.integers(1, 7))) for _ in range(500)]
+    words += BEAM_HOTWORDS[:2] + BEAM_HOTWORDS[2].split() + BEAM_HOTWORDS[3:]
+    sents = [[words[i] for i in rng.integers(0, len(words), rng.integers(1, 12))]
+             for _ in range(5000)]
+    return estimate_ngram_lm(sents, order=3)
+
+
+def beam_decoder(lm, device, hotwords=None):
+    from tone_tpu_torch.decoder import DeviceBeamSearchCTCDecoder
+
+    dec = DeviceBeamSearchCTCDecoder(lm, beam_width=BEAM_WIDTH, nbest=BEAM_NBEST,
+                                     max_len=2048, hotwords=hotwords, device=device)
+    dec.batch_floor = dec.max_batch = BEAM_ROWS
+    return dec
+
+
+def _beam_device_profile(fn) -> tuple[float, int]:
+    """(device ms, kernel launches) of one call, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not events:
+        raise AssertionError("the profiler saw no device time for the beam search")
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def phase_beam_decode() -> dict:
+    import tempfile
+    from pathlib import Path
+
+    from tone_tpu_torch.decoding.estimate import write_arpa
+    from tone_tpu_torch.decoding.kenlm_binary import write_kenlm_binary
+    from tone_tpu_torch.decoding.lm import load_lm
+
+    tables = beam_lm_tables()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_arpa(tables, Path(tmp) / "lm.arpa")
+        write_kenlm_binary(tables, Path(tmp) / "lm.bin")
+        arpa, binary = load_lm(Path(tmp) / "lm.arpa"), load_lm(Path(tmp) / "lm.bin")
+    if type(binary).__name__ != "KenLMBinary":
+        raise AssertionError(f"load_lm read the probing binary as {type(binary).__name__}")
+    variants = {"no_lm": (None, None), "lm": (arpa, None), "hotwords": (None, BEAM_HOTWORDS)}
+    rows, texts_by_variant = [], {}
+    for v_idx, (variant, (lm, hotwords)) in enumerate(variants.items()):
+        card, cpu = beam_decoder(lm, "cuda", hotwords), beam_decoder(lm, "cpu", hotwords)
+        texts_by_variant[variant] = []
+        for t_pad in BEAM_BUCKETS:
+            lps = beam_logprobs(1000 * v_idx + t_pad, BEAM_ROWS, t_pad)
+            if t_pad == BEAM_BUCKETS[0]:
+                card.forward_batch_nbest(lps[:1], 1)   # first use of the stream
+            t0 = time.perf_counter()
+            got = card.forward_batch_nbest(lps, BEAM_NBEST)
+            ms = (time.perf_counter() - t0) * 1e3
+            device_ms, launches = _beam_device_profile(
+                lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
+            t0 = time.perf_counter()
+            want = cpu.forward_batch_nbest(lps, BEAM_NBEST)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            ties = 0
+            for r, (g, w) in enumerate(zip(got, want)):
+                if not g or not w or g[0][0] != w[0][0]:
+                    raise AssertionError(f"beam {variant} T={t_pad} row {r}: card "
+                                         f"{g[:2]} != CPU {w[:2]}")
+                err = abs(g[0][1] - w[0][1])
+                if not err <= BEAM_SCORE_TOL:
+                    raise AssertionError(f"beam {variant} T={t_pad} row {r}: best score "
+                                         f"card vs CPU {err} > {BEAM_SCORE_TOL}")
+                ties += len(g) > 1 and g[0][1] - g[1][1] < BEAM_TIE
+            texts_by_variant[variant].append([h[0][0] for h in got])
+            rows.append({"variant": variant, "frames": t_pad, "rows": BEAM_ROWS,
+                         "ms": ms, "device_ms": device_ms, "cpu_ms": cpu_ms,
+                         "launches": launches, "launches_per_frame": launches / t_pad,
+                         "device_idle_share": 1.0 - device_ms / ms,
+                         "max_score_err": max(abs(g[0][1] - w[0][1])
+                                              for g, w in zip(got, want)),
+                         "near_ties": ties})
+    # The probing binary of the same LM rescores to the ARPA's texts.
+    card_bin = beam_decoder(binary, "cuda")
+    for k, t_pad in enumerate(BEAM_BUCKETS):
+        got = card_bin.forward_batch(beam_logprobs(1000 + t_pad, BEAM_ROWS, t_pad))
+        if got != texts_by_variant["lm"][k]:
+            raise AssertionError(f"KenLM probing binary vs ARPA texts differ at T={t_pad}")
+    return {"phase": "beam_decode", "beam_width": BEAM_WIDTH, "nbest": BEAM_NBEST,
+            "max_len": 2048, "score_tol": BEAM_SCORE_TOL, "tie": BEAM_TIE,
+            "lm": {"order": 3, "ngrams": [len(t) for t in tables]},
+            "ms": "host clock around one call (ends with the n-best read back); "
+                  "device_ms from torch.profiler over one more call",
+            "cases": rows}
+
+
+def phase_serve_beam() -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoding.lm import ArpaLM
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+    from tone_tpu_torch.runtime.engine import MultiStreamEngine
+
+    cfg = ToneConfig()
+    n = cfg.audio_chunk_samples
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    lm = ArpaLM(beam_lm_tables())
+    engine = MultiStreamEngine(variables, cfg, n_slots=SERVE_SLOTS, device="cuda",
+                               decoder=beam_decoder(lm, "cuda"), interim_device_beam=True,
+                               interim_beam_width=8, word_timestamps=True)
+    finals_ms, decoded = [], []
+    real_nbest = engine.decoder.forward_batch_nbest
+
+    def timed(lps, k, hotword_rows=None):
+        t0 = time.perf_counter()
+        out = real_nbest(lps, k, hotword_rows)
+        finals_ms.append(((time.perf_counter() - t0) * 1e3, lps, k, hotword_rows))
+        decoded.extend(zip(lps, hotword_rows or [None] * len(lps),
+                           [r[0][0] if r else "" for r in out]))
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        engine.decoder.forward_batch_nbest = timed
+        rng = np.random.default_rng(1)
+        sids = [engine.open_stream() for _ in range(3)]
+        # 23 trie nodes: the 32-node bucket warmup() ran, so no warm starts
+        engine.set_stream_hotwords(sids[1], BEAM_HOTWORDS, 5.0)
+        engine.set_stream_nbest(sids[2], 4)
+        for sid in sids:
+            pcm = rng.integers(-20000, 20000, 10 * n).astype(np.int16)  # 3 s
+            audio = np.concatenate([np.zeros(cfg.padding, np.int16), pcm,
+                                    np.zeros(cfg.padding, np.int16)])
+            for i in range(0, len(audio), n):
+                engine.feed(sid, audio[i:i + n])
+            engine.close_stream(sid)
+
+        glu_ff2.launches = 0
+        ticks0 = engine.stats.ticks
+        futures = {sid: [] for sid in sids}
+        done: set[int] = set()
+        tick_ms, interims = [], 0
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        while len(done) < len(sids):
+            t0 = time.perf_counter()
+            for sid, futs in engine.tick().items():
+                futures[sid].extend(futs)
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            interims += len(engine.last_interims)
+            if len(tick_ms) == SERVE_PROFILED_TICKS:
+                torch.cuda.synchronize()
+                prof.stop()
+            done.update(engine.pop_finished())
+            if len(tick_ms) > 100:
+                raise AssertionError("streams did not finish within 100 ticks")
+        if len(tick_ms) <= SERVE_PROFILED_TICKS:
+            raise AssertionError(f"only {len(tick_ms)} ticks: too few to profile")
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_PROFILED_TICKS
+        ticks = engine.stats.ticks - ticks0
+        launches = glu_ff2.launches
+        if launches != 32 * ticks:
+            raise AssertionError(f"{launches} GLU launches over {ticks} ticks")
+        phrases = {sid: [f.result(timeout=300) for f in futs] for sid, futs in futures.items()}
+        # each finals call once more, alone (no tick or alignment beside it)
+        finals_calls = []
+        for ms, lps, k, rows in finals_ms:
+            t0 = time.perf_counter()
+            real_nbest(lps, k, rows)
+            finals_calls.append({"phrases": len(lps), "frames": [len(lp) for lp in lps],
+                                 "hotword_rows": rows is not None, "n": k, "ms": ms,
+                                 "alone_ms": (time.perf_counter() - t0) * 1e3})
+    finally:
+        engine.shutdown()
+    for sid, ps in phrases.items():
+        if not ps:
+            raise AssertionError(f"stream {sid} yielded no final phrase")
+        times = [t for p in ps for t in (p.start_time, p.end_time)]
+        if times != sorted(times) or any(t < 0 for t in times):
+            raise AssertionError(f"stream {sid}: phrase times out of order: {times}")
+        for p in ps:
+            w_times = [t for w in p.words or () for t in (w.start_time, w.end_time)]
+            if w_times != sorted(w_times) or (p.text and not p.words):
+                raise AssertionError(f"stream {sid}: word times {w_times} of {p.text!r}")
+    for p in phrases[sids[2]]:
+        if not p.nbest or p.nbest[0][0] != p.text:
+            raise AssertionError(f"n-best stream: alternatives {p.nbest} of {p.text!r}")
+    # every final against the port's CPU decoder on that phrase's logprobs
+    cpu = beam_decoder(lm, "cpu")
+    cpu.batch_floor, cpu.max_batch = 1, None
+    finals = [p.text for sid in sids for p in phrases[sid]]
+    if sorted(finals) != sorted(text for _, _, text in decoded):
+        raise AssertionError(f"finals {finals} are not the batched calls' {decoded}")
+    for lp, hw, text in decoded:
+        want = cpu.forward_batch([lp], [hw] if hw is not None else None)[0]
+        if text != want:
+            raise AssertionError(f"final on the card {text!r} != CPU decoder {want!r}")
+    return {"phase": "serve_beam", "slots": SERVE_SLOTS, "streams": len(sids),
+            "ticks": ticks, "glu_launches": launches, "warmup_s": warmup_s,
+            "tick_ms_median": float(np.median(tick_ms[SERVE_PROFILED_TICKS:])),
+            "tick_ms_max": float(np.max(tick_ms)),
+            "profiled_ticks": SERVE_PROFILED_TICKS, "device_ms_per_tick": device_ms,
+            "interim_events": interims,
+            "finals_calls": finals_calls,
+            "phrases": {str(sid): [[p.text[:40], p.start_time, p.end_time,
+                                    len(p.words or ()), len(p.nbest or ())] for p in ps]
+                        for sid, ps in phrases.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -558,6 +816,8 @@ def main() -> int:
     emit(fused)
     fused_step = phase_fused_step()
     emit(fused_step)
+    emit(phase_beam_decode())
+    emit(phase_serve_beam())
 
     # The serve phase is the main path: its full-rate layers give M = 10 * slots.
     main_m = SERVE_SLOTS * 10

@@ -301,3 +301,116 @@ def test_fused_plan_refuses_float32_on_the_card(cuda, fused_models):
     with pytest.raises(TypeError, match="bf16"):
         FE.prepare_fused_params(variables, ToneConfig(encoder=cfg.encoder,
                                                       compute_dtype="float32"), device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# The device beam search (ops/beam_decode.py) on the card against the CPU:
+# the same torch ops, so states agree bit for bit on hashes, tokens and
+# lengths, and within float rounding on the log probabilities.
+# ---------------------------------------------------------------------------
+
+from tone_tpu_torch.ops import beam_decode as BD  # noqa: E402
+
+BEAM_V = 35
+
+
+def _beam_logprobs(seed, b, t, scale=2.5, blank=4.0):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0.0, scale, (b, t, BEAM_V))
+    logits[..., BEAM_V - 1] += blank
+    x = logits - logits.max(-1, keepdims=True)
+    return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+
+
+def _assert_beam_states_equal(card, cpu):
+    for f in ("h1", "h2", "lc", "tokens", "lens"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    for f in ("p_b", "p_nb"):
+        a, b = getattr(card, f).cpu(), getattr(cpu, f)
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b)), f
+        fin = torch.isfinite(b)
+        assert (a[fin] - b[fin]).abs().max().item() <= 1e-5 if fin.any() else True, f
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("width", [4, 32])
+def test_beam_advance_on_card_matches_cpu(cuda, width, hot):
+    lp = _beam_logprobs(width, 8, 96)
+    lengths = np.array([96, 90, 64, 50, 33, 12, 1, 0])
+    if hot:
+        tables = BD.make_hotword_tables(["да", "нет привет", "мир"], 4.0)
+        card = BD.hot_beam_advance(BD.init_hot_beam_state(8, width, 128, cuda), lp, lengths,
+                                   hotwords=tables)
+        cpu = BD.hot_beam_advance(BD.init_hot_beam_state(8, width, 128), lp, lengths,
+                                  hotwords=tables)
+        assert torch.equal(card.node.cpu(), cpu.node)
+        assert (card.bias.cpu() - cpu.bias).abs().max().item() <= 1e-5
+        card, cpu = card.base, cpu.base
+    else:
+        card = BD.beam_advance(BD.init_beam_state(8, width, 128, cuda), lp, lengths)
+        cpu = BD.beam_advance(BD.init_beam_state(8, width, 128), lp, lengths)
+    assert card.p_b.device.type == cuda.type
+    _assert_beam_states_equal(card, cpu)
+    assert BD.beam_nbest(card, width) == BD.beam_nbest(cpu, width) or hot
+
+
+def test_beam_tie_order_on_card(cuda):
+    """Uniform frames: every candidate ties with many others, so only the
+    stable order (lower index first, as XLA's TopK) keeps card and CPU on
+    the same beams and hashes."""
+    lp = np.full((4, 12, BEAM_V), -np.log(BEAM_V), np.float32)
+    card = BD.beam_advance(BD.init_beam_state(4, 16, 32, cuda), lp)
+    cpu = BD.beam_advance(BD.init_beam_state(4, 16, 32), lp)
+    _assert_beam_states_equal(card, cpu)
+    assert len(set(cpu.h1[0].tolist())) == 16   # ties kept distinct beams
+
+
+def test_beam_hash_products_on_card(cuda):
+    rng = np.random.default_rng(0)
+    h = rng.integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.int64)
+    h[:4] = [0, 1, 2**31, 2**32 - 1]
+    v = torch.from_numpy(rng.integers(-1, 34, 1 << 16))
+    ht = torch.from_numpy(h)
+    card = BD._mix(ht.to(cuda), ht.to(cuda), v.to(cuda))
+    cpu = BD._mix(ht, ht, v)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    u = (v.numpy() + 1).astype(np.uint32)
+    want2 = (h.astype(np.uint32) * np.uint32(2654435761) + u).astype(np.int64)
+    assert np.array_equal(cpu[1].numpy(), want2)
+
+
+def test_neg_inf_arithmetic_on_card(cuda):
+    ninf = torch.full((3, 5), float("-inf"), device=cuda)
+    assert torch.isneginf(torch.logaddexp(ninf, ninf)).all()
+    assert torch.isneginf(torch.logsumexp(ninf, -1)).all()
+    x = torch.tensor([-1.5, float("-inf")], device=cuda)
+    assert torch.logaddexp(x, torch.full_like(x, float("-inf"))).tolist() == [-1.5, float("-inf")]
+    state = BD.beam_advance(BD.init_beam_state(2, 8, 16, cuda),
+                            np.zeros((2, 0, BEAM_V), np.float32))
+    assert torch.isneginf(state.totals[:, 1:]).all() and (state.totals[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("variant", ["lm", "hotword_rows"])
+def test_device_beam_decoder_on_card_matches_cpu(cuda, variant):
+    from tone_tpu_torch.decoder import DeviceBeamSearchCTCDecoder
+    from tone_tpu_torch.decoding.estimate import estimate_ngram_lm
+    from tone_tpu_torch.decoding.lm import ArpaLM
+
+    rng = np.random.default_rng(1)
+    words = ["да", "нет", "мир", "вот", "так", "ёж"]
+    lm = ArpaLM(estimate_ngram_lm(
+        [[words[i] for i in rng.integers(0, 6, rng.integers(1, 6))] for _ in range(200)], 3))
+    phrases = [_beam_logprobs(10 + i, 1, t)[0] for i, t in enumerate([40, 64, 100, 7, 300])]
+    rows = None
+    if variant == "hotword_rows":
+        rows = [BD.make_hotword_tables(["да"]), None, BD.make_hotword_tables(["мир вот"], 3.0),
+                None, BD.make_hotword_tables(["ёж", "так"])]
+    card = DeviceBeamSearchCTCDecoder(lm, beam_width=16, device=cuda)
+    cpu = DeviceBeamSearchCTCDecoder(lm, beam_width=16, device="cpu")
+    got, want = card.forward_batch_nbest(phrases, 4, rows), cpu.forward_batch_nbest(
+        phrases, 4, rows)
+    assert [[h[0] for h in r] for r in got] == [[h[0] for h in r] for r in want]
+    for g, w in zip(got, want):
+        assert np.allclose([h[1] for h in g], [h[1] for h in w], atol=1e-4)
+    assert card._cuda_stream is not None   # the search ran on its own stream

@@ -4,7 +4,7 @@
   specifies them for the JAX arena (float32, 1e-4);
 * the port's engine and the JAX engine, given the same tiny float32 weights
   and audio, give the same texts and timestamps (and the same interim text);
-* suspend/resume, the not-yet-ported options, the metrics, the CLI;
+* suspend/resume, the options still to port, the metrics, the CLI;
 * an in-process websocket round trip through the port's server.
 """
 
@@ -113,9 +113,10 @@ def _padded(wav, cfg):
     return np.pad(out, (0, -len(out) % N))
 
 
-def _drive(engine, streams, cfg):
+def _drive(engine, streams, cfg, words=False):
     """Open one stream per audio, feed it all, close, tick until done.
-    Returns ([(text, start, end), ...] per stream, interims per tick)."""
+    Returns ([(text, start, end), ...] per stream, interims per tick) and,
+    with ``words``, the word timings of every phrase in order as tuples."""
     sids = []
     for wav in streams:
         sid = engine.open_stream()
@@ -130,7 +131,12 @@ def _drive(engine, streams, cfg):
         for sid, futs in engine.tick().items():
             phrases[sid].extend(f.result(timeout=30) for f in futs)
         interims.append({sids.index(s): t for s, t in engine.last_interims.items()})
-    return [[(p.text, p.start_time, p.end_time) for p in phrases[s]] for s in sids], interims
+    texts = [[(p.text, p.start_time, p.end_time) for p in phrases[s]] for s in sids]
+    if words:
+        return texts, interims, [[(w.word, w.start_time, w.end_time, w.confidence)
+                                  for w in p.words or ()]
+                                 for s in sids for p in phrases[s]]
+    return texts, interims
 
 
 def test_engine_matches_jax_engine(tiny):
@@ -202,13 +208,43 @@ def test_engine_suspend_resume_continues_the_stream(tiny):
     assert [p[1:] for p in moved] == [p[1:] for p in straight]
 
 
-@pytest.mark.parametrize("option", [
-    {"interim_beam": True}, {"interim_device_beam": True},
-    {"word_timestamps": True}, {"nbest": 2}, {"decoder": object()}])
-def test_engine_options_not_ported_raise(tiny, option):
+@pytest.mark.parametrize("option, error, match", [
+    ({"interim_beam": True}, NotImplementedError, "ROADMAP queue A11"),
+    ({"decoder": object()}, NotImplementedError, "ROADMAP queue A11"),
+    ({"nbest": 2}, ValueError, "needs a beam decoder"),
+    ({"nbest": 1}, ValueError, "ambiguous"),
+    ({"nbest": 33}, ValueError, "0..32")])
+def test_engine_options_not_ported_raise(tiny, option, error, match):
+    """What the port's engine still refuses: the host beam (ROADMAP A11),
+    and the JAX engine's n-best checks on a greedy decoder."""
     _, tc, _, tv = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         MultiStreamEngine(tv, tc, n_slots=1, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", ["interim_device_beam", "word_timestamps"])
+def test_engine_beam_interims_and_word_times_with_greedy_finals(tiny, option):
+    """Options that no longer raise: with greedy finals, the interim device
+    beam arena and word timestamps give the JAX engine's texts, times,
+    words and interims."""
+    jc, tc, jv, tv = tiny
+    streams = [audio(N * 5, seed=20), audio(N * 6, seed=21)]
+    jeng = JaxEngine(jv, jc, n_slots=3, **{option: True})
+    teng = MultiStreamEngine(tv, tc, n_slots=3, device="cpu", **{option: True})
+    try:
+        expected, jinterims, jwords = _drive(jeng, streams, jc, words=True)
+        got, tinterims, twords = _drive(teng, streams, tc, words=True)
+    finally:
+        jeng.shutdown()
+        teng.shutdown()
+    assert all(expected) and got == expected and tinterims == jinterims
+    if option == "word_timestamps":
+        assert any(jwords)
+        for jw, tw in zip(jwords, twords):
+            assert [w[:3] for w in tw] == [w[:3] for w in jw]
+            np.testing.assert_allclose([w[3] for w in tw], [w[3] for w in jw], atol=1e-4)
+    else:
+        assert any(jinterims) and not any(jwords) and not any(twords)
 
 
 def test_metrics_and_health(tiny):
@@ -376,13 +412,21 @@ def test_greedy_decoder_matches_jax(seed):
 
 
 def test_beam_decoders_are_not_ported_yet():
-    from tone_tpu_torch.decoder import DecoderType, build_decoder
+    """The host beam (A11) and the fused-LM search (A10) still raise; the
+    device beam decoder is built, on the device asked for."""
+    from tone_tpu_torch.decoder import DecoderType, DeviceBeamSearchCTCDecoder, build_decoder
 
     blanks = np.full((3, 35), -10.0, np.float32)
     blanks[:, 34] = 0.0
     assert build_decoder("greedy").forward(blanks) == ""
-    for kind in (DecoderType.BEAM_SEARCH, "beam", "device-beam"):
+    for kind in (DecoderType.BEAM_SEARCH, "beam"):
         with pytest.raises(NotImplementedError, match="A11"):
             build_decoder(kind)
+    with pytest.raises(NotImplementedError, match="A10"):
+        build_decoder("device-beam", lm="lm.arpa", fused_lm=True, device="cpu")
+    decoder = build_decoder("device-beam", beam_width=4, device="cpu")
+    assert isinstance(decoder, DeviceBeamSearchCTCDecoder)
+    assert (decoder.beam_width, decoder.device.type) == (4, "cpu")
+    assert decoder.forward(blanks) == ""
     with pytest.raises(ValueError):
         build_decoder("viterbi")

@@ -1,11 +1,14 @@
 """Command-line interface of the PyTorch/CUDA port: the ``serve`` subcommand
-(port of ``tone_tpu/__main__.py:142-192, :318``, with the flags the greedy
-engine supports).
+(port of ``tone_tpu/__main__.py:29-44, :142-192, :318``, with the flags the
+port's engine supports).
 
   python -m tone_tpu_torch serve [--port 8080] [--slots 256] [...]
+  python -m tone_tpu_torch serve --decoder device-beam --lm lm.arpa [...]
 
-With no ``--checkpoint`` the model takes random weights from seed 0, as the
-JAX CLI does; loading a checkpoint waits for the interop slice (ROADMAP
+With no ``--checkpoint`` the model takes random weights from
+``torch.Generator().manual_seed(0)``; the JAX CLI draws its random weights
+from ``jax.random.PRNGKey(0)``, so the two CLIs serve different weights and
+transcripts.  Loading a checkpoint waits for the interop slice (ROADMAP
 A14).  The server runs on the GPU; ``--device cpu`` asks for the CPU.
 """
 
@@ -26,10 +29,30 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--slots", type=int, default=256)
     p_srv.add_argument("--interim", action="store_true",
                        help="stream in-progress phrase partials")
+    p_srv.add_argument("--interim-beam", action="store_true",
+                       help="partials from a carried host beam search "
+                            "(not ported yet: ROADMAP A11)")
+    p_srv.add_argument("--interim-device-beam", action="store_true",
+                       help="partials from a carried beam search on the device")
+    p_srv.add_argument("--interim-beam-width", type=int, default=8)
+    p_srv.add_argument("--interim-beam-max-len", type=int, default=2048)
     p_srv.add_argument("--idle-evict-seconds", type=float, default=None,
                        help="idle stream reap timeout (default 15 s, Triton parity)")
+    p_srv.add_argument("--word-times", action="store_true",
+                       help="transcript events carry per-word times + "
+                            "confidences (CTC forced alignment)")
     p_srv.add_argument("--force-evict-grace", type=float, default=None,
                        help="min quiet seconds before slot steal under pressure")
+    p_srv.add_argument("--nbest", type=int, default=0,
+                       help="transcript events carry up to N scored "
+                            "alternatives for every stream (needs a beam "
+                            "decoder; clients can instead opt in per stream "
+                            "with a JSON config frame {'nbest': N})")
+    p_srv.add_argument("--hotword-warmup-buckets", type=int, nargs="*",
+                       default=[32], metavar="NODES",
+                       help="hotword-table node buckets (powers of two) whose "
+                            "per-request-biased finals call runs during warmup "
+                            "(default 32; nothing to skip)")
     p_srv.add_argument("--max-candidates", type=int, default=4096,
                        help="streams accepted beyond --slots: they queue as "
                             "candidates and bind oldest-first as slots free "
@@ -40,9 +63,64 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--checkpoint", type=Path, default=None,
                        help="not supported yet (ROADMAP A14); default: random "
                             "weights from seed 0")
+    p_srv.add_argument("--decoder", choices=["greedy", "beam", "device-beam"],
+                       default="greedy",
+                       help="device-beam = beam search on the device with n-best "
+                            "LM rescoring on the host (beam: not ported yet, "
+                            "ROADMAP A11)")
+    p_srv.add_argument("--lm", type=Path, default=None,
+                       help="LM for beam search (ARPA text or KenLM binary)")
+    p_srv.add_argument("--fused-lm", action="store_true",
+                       help="fuse the LM into the device search (not ported "
+                            "yet: ROADMAP A10)")
+    p_srv.add_argument("--hotwords", type=str, default=None,
+                       help="with --decoder device-beam: comma-separated "
+                            "words/phrases (or @file, one per line) to bias "
+                            "the search toward")
+    p_srv.add_argument("--hotword-weight", type=float, default=10.0)
+    p_srv.add_argument("--beam-width", type=int, default=None,
+                       help="beam width override (default 32)")
     p_srv.add_argument("--device", default=None,
                        help="torch device (default cuda; 'cpu' to run on the CPU)")
     return parser
+
+
+def build_engine(args):
+    """The ``serve`` subcommand's engine from its parsed arguments (random
+    weights from seed 0; not warmed up)."""
+    import torch
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoder import build_decoder, parse_hotwords
+    from tone_tpu_torch.runtime.engine import MultiStreamEngine
+
+    if args.checkpoint is not None:
+        raise NotImplementedError(
+            "--checkpoint: loading checkpoints is not ported to "
+            "tone_tpu_torch yet (ROADMAP queue A14)")
+    if args.interim_beam:
+        raise NotImplementedError(
+            "--interim-beam: the carried host beam search is not ported to "
+            "tone_tpu_torch yet (ROADMAP queue A11)")
+    decoder = build_decoder(args.decoder, lm=args.lm, fused_lm=args.fused_lm,
+                            beam_width=args.beam_width,
+                            hotwords=parse_hotwords(args.hotwords),
+                            hotword_weight=args.hotword_weight, device=args.device)
+    config = ToneConfig()
+    print("warning: no checkpoint given — using RANDOM weights")
+    variables = init_model_params(torch.Generator().manual_seed(0), config)
+    return MultiStreamEngine(
+        variables, config, n_slots=args.slots, decoder=decoder, device=args.device,
+        interim_transcripts=args.interim,
+        interim_device_beam=args.interim_device_beam,
+        interim_beam_width=args.interim_beam_width,
+        interim_beam_max_len=args.interim_beam_max_len,
+        idle_evict_seconds=args.idle_evict_seconds,
+        force_evict_grace=args.force_evict_grace,
+        word_timestamps=args.word_times, nbest=args.nbest,
+        max_candidates=args.max_candidates,
+        hotword_warmup_buckets=args.hotword_warmup_buckets)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -51,27 +129,10 @@ def main(argv: list[str] | None = None) -> None:
         import asyncio
         import logging
 
-        import torch
-
-        from tone_tpu_torch.config import ToneConfig
-        from tone_tpu_torch.core.model import init_model_params
-        from tone_tpu_torch.runtime.engine import MultiStreamEngine
         from tone_tpu_torch.runtime.server import serve
 
-        if args.checkpoint is not None:
-            raise NotImplementedError(
-                "--checkpoint: loading checkpoints is not ported to "
-                "tone_tpu_torch yet (ROADMAP queue A14)")
+        engine = build_engine(args)
         logging.basicConfig(level=logging.INFO)
-        config = ToneConfig()
-        print("warning: no checkpoint given — using RANDOM weights")
-        variables = init_model_params(torch.Generator().manual_seed(0), config)
-        engine = MultiStreamEngine(
-            variables, config, n_slots=args.slots, device=args.device,
-            interim_transcripts=args.interim,
-            idle_evict_seconds=args.idle_evict_seconds,
-            force_evict_grace=args.force_evict_grace,
-            max_candidates=args.max_candidates)
         try:
             asyncio.run(serve(engine, args.host, args.port,
                               metrics_port=args.metrics_port,

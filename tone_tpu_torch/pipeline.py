@@ -1,5 +1,6 @@
-"""The streaming ASR pipeline: acoustic model -> splitter -> greedy decoder
-(port of ``tone_tpu/pipeline.py:32-233``, greedy only).
+"""The streaming ASR pipeline: acoustic model -> splitter -> decoder (port of
+``tone_tpu/pipeline.py:32-233``): greedy or device-beam decoding, optional
+word timestamps and n-best alternatives.
 
 The ±300 ms "magic padding" and the timestamp math (frame_size 0.03 s,
 mean time bias 0.33 s, padding correction) are the reference's.  The
@@ -25,13 +26,22 @@ if TYPE_CHECKING:
 
 @dataclass
 class TextPhrase:
-    """A decoded phrase with timestamps (seconds).  Word timings and n-best
-    alternatives come with the aligner and the beam decoders (ROADMAP A10,
-    A11)."""
+    """A decoded phrase with timestamps (seconds).
+
+    ``words`` (None unless word timestamps were asked for: the pipeline's
+    ``word_timestamps=True`` or the engine's) carries per-word times and
+    confidences from CTC forced alignment (``align.py``).
+
+    ``nbest`` (None unless n-best was asked for: the pipeline's ``nbest=``
+    or the engine's per-stream ``set_stream_nbest``) carries up to N
+    alternative ``(text, score)`` transcripts, best first;
+    ``nbest[0][0] == text``."""
 
     text: str
     start_time: float
     end_time: float
+    words: "tuple | None" = None
+    nbest: "tuple | None" = None
 
 
 def phrase_times(config: ToneConfig, start_frame: int,
@@ -44,6 +54,18 @@ def phrase_times(config: ToneConfig, start_frame: int,
     return start, end
 
 
+def word_timings(config: ToneConfig, logprob_phrase, text: str):
+    """Per-word times and confidences of ``text`` in a phrase (CTC forced
+    alignment), or None for an empty text."""
+    if not text:
+        return None
+    from tone_tpu_torch.align import align_words, spans_to_word_timings
+
+    bias = config.mean_time_bias + config.padding / config.frontend.sample_rate
+    return spans_to_word_timings(align_words(logprob_phrase.logprobs, text),
+                                 logprob_phrase.start_frame, config.frame_size, bias)
+
+
 class StreamingCTCPipeline:
     """Streaming CTC speech recognition over 300 ms chunks."""
 
@@ -52,10 +74,25 @@ class StreamingCTCPipeline:
 
     def __init__(self, model: StreamingCTCModel,
                  logprob_splitter: StreamingLogprobSplitter | None = None,
-                 decoder: GreedyCTCDecoder | None = None) -> None:
+                 decoder=None, *, word_timestamps: bool = False,
+                 nbest: int = 0) -> None:
+        """``decoder``: a ``GreedyCTCDecoder`` (the default) or a
+        ``DeviceBeamSearchCTCDecoder``.  ``word_timestamps``: phrases carry
+        per-word times.  ``nbest``: 0 (top-1 only) or N >= 2 alternatives,
+        which needs a beam decoder."""
+        if nbest == 1:
+            raise ValueError(
+                "nbest=1 is ambiguous (phrases always carry the top "
+                "hypothesis as .text): use 0 for no alternatives or N >= 2")
+        decoder = decoder or GreedyCTCDecoder()
+        if nbest > 1 and not hasattr(decoder, "nbest"):
+            raise ValueError(
+                "nbest > 1 needs a beam decoder (greedy has no alternatives)")
+        self.nbest = int(nbest) if nbest > 1 else 0
+        self.word_timestamps = word_timestamps
         self.model = model
         self.logprob_splitter = logprob_splitter or StreamingLogprobSplitter()
-        self.decoder = decoder or GreedyCTCDecoder()
+        self.decoder = decoder
         # Instance-level chunk/padding follow the model config.
         self.CHUNK_SIZE = model.config.audio_chunk_samples
         self.PADDING = model.config.padding
@@ -86,10 +123,20 @@ class StreamingCTCPipeline:
         return phrases, (model_state_next, splitter_state_next)
 
     def _decode_phrase(self, logprob_phrase) -> TextPhrase:
-        text = self.decoder.forward(np.ascontiguousarray(logprob_phrase.logprobs))
-        start, end = phrase_times(self.model.config, logprob_phrase.start_frame,
+        logprobs = np.ascontiguousarray(logprob_phrase.logprobs)
+        alternatives = None
+        if self.nbest:
+            ranked = self.decoder.nbest(logprobs, self.nbest)
+            text = ranked[0][0] if ranked else ""
+            alternatives = tuple(ranked)
+        else:
+            text = self.decoder.forward(logprobs)
+        config = self.model.config
+        start, end = phrase_times(config, logprob_phrase.start_frame,
                                   logprob_phrase.end_frame)
-        return TextPhrase(text=text, start_time=start, end_time=end)
+        words = word_timings(config, logprob_phrase, text) if self.word_timestamps else None
+        return TextPhrase(text=text, start_time=start, end_time=end, words=words,
+                          nbest=alternatives)
 
     def forward_offline(self, audio: "npt.NDArray[np.int32]") -> list[TextPhrase]:
         """Recognize a complete utterance as looped streaming."""

@@ -1,20 +1,24 @@
 """Multi-stream serving engine: stream table, tick loop, phrase decoding
-(port of the host path of ``tone_tpu/runtime/engine.py`` with a greedy
-decoder).
+(port of ``tone_tpu/runtime/engine.py`` with the greedy and the device-beam
+decoders).
 
 A stream table maps stream ids to arena slots; idle streams are evicted
 after a timeout (Triton's ``max_sequence_idle_microseconds: 15000000``),
 streams beyond the slot count wait as candidates, and each tick batches all
 pending chunks into one arena step.  Phrase segmentation is one vectorized
-pass over the ticking slots (``BatchLogprobSplitter``); final phrases decode
-greedily on a small thread pool, interim text in the tick.
+pass over the ticking slots (``BatchLogprobSplitter``).  Final phrases
+decode on a small thread pool: greedily one by one, or, with a
+``DeviceBeamSearchCTCDecoder``, all phrases of a tick in one batched device
+call (with per-stream n-best and hotwords).  Interim text comes from the
+greedy collapse in the tick or from a beam arena on the device.
 
-Options that need the device decoders, the beam decoders or the aligner
-raise ``NotImplementedError`` naming their ROADMAP item.
+The host beam decoders (``interim_beam``, hotwords on a greedy engine)
+raise ``NotImplementedError`` naming their ROADMAP item (A11).
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -23,8 +27,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from tone_tpu_torch.config import ToneConfig
-from tone_tpu_torch.decoder import GreedyCTCDecoder
-from tone_tpu_torch.pipeline import TextPhrase, phrase_times
+from tone_tpu_torch.decoder import DeviceBeamSearchCTCDecoder, GreedyCTCDecoder
+from tone_tpu_torch.pipeline import TextPhrase, phrase_times, word_timings
 from tone_tpu_torch.runtime.arena import StreamArena
 from tone_tpu_torch.splitter import BatchLogprobSplitter
 
@@ -43,6 +47,14 @@ class _Stream:
     interim_prev: int = -1          # last argmax token id (CTC collapse)
     interim_chars: list = field(default_factory=list)
     interim_sent: str = ""
+    # Per-request hotwords on a device decoder: the automaton tables ride
+    # the batched finals call as one row of stacked tables; a list too big
+    # to stack gets a per-stream decoder instead.
+    decoder: object = None          # per-stream decoder override
+    hotwords: tuple | None = None   # (words, weight) behind the biasing —
+    # plain data so suspend/resume can carry it across engines
+    hotword_tables: object = None   # ops.beam_decode.HotwordTables
+    nbest: int = 0                  # >1: finals carry n-best alternatives
     ticks: int = 0                  # completed ticks (suspend's torn-read guard)
 
 
@@ -79,20 +91,51 @@ class MultiStreamEngine:
     IDLE_EVICT_SECONDS = 15.0  # Triton parity: max_sequence_idle 15 s
     FORCE_EVICT_GRACE_SECONDS = 1.0  # never steal a slot active this recently
 
+    MAX_NBEST = 32
+    # Cap on the stacked per-row hotword tables a batched finals call may
+    # upload (3 tables x final_decode_batch x nodes x chars); a request over
+    # it gets a per-stream decoder (per-phrase decodes) instead.
+    MAX_STACKED_HOTWORD_BYTES = 32 * 1024 * 1024
+
     def __init__(self, variables, config: ToneConfig, n_slots: int = 256,
                  decoder=None, device=None, decode_workers: int = 8,
                  interim_transcripts: bool = False,
                  interim_beam: bool = False,
                  interim_device_beam: bool = False,
+                 interim_beam_width: int = 8,
+                 interim_beam_max_len: int = 2048,
                  idle_evict_seconds: float | None = None,
                  force_evict_grace: float | None = None,
+                 final_decode_batch: int = 64,
                  word_timestamps: bool = False,
                  nbest: int = 0,
                  max_candidates: int = 0,
-                 candidate_buffer_chunks: int = 200) -> None:
-        """``interim_transcripts``: also decode each in-progress phrase
-        greedily in the tick; ``tick`` then reports partial text per stream
-        in ``last_interims``.
+                 candidate_buffer_chunks: int = 200,
+                 hotword_warmup_buckets=(32,)) -> None:
+        """``decoder``: ``GreedyCTCDecoder`` (the default) or
+        ``DeviceBeamSearchCTCDecoder``.  With the device decoder, final
+        phrases of a tick decode in one batched call; the engine works on a
+        shallow copy pinned to the engine's device and to
+        ``final_decode_batch`` rows per call (batches pad up to and split
+        at it, so ``warmup`` runs every shape a tick can ask for).
+
+        ``interim_transcripts``: also decode each in-progress phrase in the
+        tick; ``tick`` then reports partial text per stream in
+        ``last_interims``.  ``interim_device_beam``: the partials come from
+        a beam arena on the device (``ops/beam_decode.py``), advanced for
+        every ticking slot in one call per tick and reset at phrase
+        boundaries, biased like the finals when the decoder has hotwords;
+        ``interim_beam_width`` / ``interim_beam_max_len`` size it.
+
+        ``word_timestamps``: final phrases carry per-word times and
+        confidences (CTC forced alignment, ``align.py``), on the pool.
+
+        ``nbest``: the default per-stream n-best (0, or 2..MAX_NBEST);
+        ``set_stream_nbest`` overrides it per request.  Needs a beam
+        decoder.
+
+        ``hotword_warmup_buckets``: hotword-table node buckets whose
+        stacked finals calls ``warmup`` runs once (device decoders only).
 
         ``idle_evict_seconds`` overrides the Triton-parity 15 s idle reap;
         ``force_evict_grace`` the 1 s quiet period below which a slot is
@@ -104,26 +147,45 @@ class MultiStreamEngine:
 
         ``device``: ``cuda`` unless the caller asks for the CPU.
 
-        Not ported yet (raise NotImplementedError): ``interim_beam`` (A11),
-        ``interim_device_beam`` (A10), ``word_timestamps`` (the aligner,
-        A10), ``nbest`` > 0 (A10/A11) and decoders other than greedy, such
-        as device-decoder finals (A10) or hotword beams (A11)."""
+        Not ported yet (raise NotImplementedError): ``interim_beam`` and
+        decoders other than the two above, such as the host beam (A11)."""
         if interim_beam:
             raise _not_ported("interim_beam (carried host beam search)", "A11")
-        if interim_device_beam:
-            raise _not_ported("interim_device_beam (device beam arena)", "A10")
-        if word_timestamps:
-            raise _not_ported("word_timestamps (CTC forced alignment)", "A10")
-        if nbest:
-            raise _not_ported("nbest (beam-search alternatives)", "A10/A11")
-        if decoder is not None and not isinstance(decoder, GreedyCTCDecoder):
+        if decoder is not None and not isinstance(
+                decoder, (GreedyCTCDecoder, DeviceBeamSearchCTCDecoder)):
             raise _not_ported(f"decoding with {type(decoder).__name__} "
-                              "(device-decoder finals, beam and hotword decoders)",
-                              "A10/A11")
+                              "(host beam decoders)", "A11")
+        if nbest and (nbest < 0 or nbest > self.MAX_NBEST):
+            raise ValueError(f"nbest must be 0..{self.MAX_NBEST}, got {nbest}")
+        if nbest == 1:
+            raise ValueError("nbest=1 is ambiguous (finals always carry the "
+                             "top hypothesis as .text): use 0 for no "
+                             "alternatives or N >= 2")
+        if nbest and not hasattr(decoder or (), "nbest"):
+            raise ValueError("nbest > 1 needs a beam decoder (greedy has no "
+                             "alternative hypotheses)")
         self.config = config
         self.arena = StreamArena(variables, config, n_slots, device=device)
+        self.device_finals = isinstance(decoder, DeviceBeamSearchCTCDecoder)
+        if self.device_finals:
+            # A copy pinned to the engine's device and one batch bucket: the
+            # caller's decoder may also serve a pipeline or another engine.
+            decoder = copy.copy(decoder)
+            decoder.device = self.arena.device
+            decoder._cuda_stream = None
+            decoder.batch_floor = decoder.max_batch = final_decode_batch
         self.decoder = decoder or GreedyCTCDecoder()
-        self.interim_transcripts = interim_transcripts
+        self.interim_transcripts = interim_transcripts or interim_device_beam
+        self.interim_device_beam = interim_device_beam
+        self._device_beams = None       # lazy ops.beam_decode (Hot)BeamState
+        self._device_beam_width = interim_beam_width
+        self._device_beam_max_len = interim_beam_max_len
+        self.word_timestamps = word_timestamps
+        self.default_nbest = int(nbest) if nbest else 0
+        # hotword-table node buckets whose stacked finals calls were run
+        self._warmed_hotword_buckets: set[int] = set()
+        self._hotword_warmup_buckets = tuple(
+            int(b) for b in (hotword_warmup_buckets or ()) if int(b) > 0)
         if idle_evict_seconds is not None:
             self.IDLE_EVICT_SECONDS = idle_evict_seconds
         if force_evict_grace is not None:
@@ -137,6 +199,9 @@ class MultiStreamEngine:
         self._inflight: set[int] = set()    # sids mid-tick (popped, not done)
         self._free_slots = list(range(n_slots))
         self._slot_reset = np.zeros(n_slots, bool)
+        # resumed slots keep their acoustic state (reset False) but restart
+        # the interim device-beam arena
+        self._beam_force_reset = np.zeros(n_slots, bool)
         self._next_id = 0
         self._lock = threading.Lock()
         self._device_lock = threading.Lock()   # serializes arena state swaps
@@ -169,7 +234,7 @@ class MultiStreamEngine:
                 slot = self._free_slots.pop()
                 sid = self._next_id
                 self._next_id += 1
-                self._streams[sid] = _Stream(slot=slot)
+                self._streams[sid] = _Stream(slot=slot, nbest=self.default_nbest)
                 self._slot_reset[slot] = True
                 self._splitter.reset(slot)
                 return sid
@@ -177,7 +242,7 @@ class MultiStreamEngine:
                 raise RuntimeError("no free stream slots")
             sid = self._next_id
             self._next_id += 1
-            self._streams[sid] = _Stream(slot=None)
+            self._streams[sid] = _Stream(slot=None, nbest=self.default_nbest)
             self._pending_bind.append(sid)
             return sid
 
@@ -194,27 +259,68 @@ class MultiStreamEngine:
             self._splitter.reset(slot)
 
     def set_stream_hotwords(self, sid: int, hotwords, hotword_weight: float = 10.0) -> None:
-        """Per-request hotword biasing needs a beam decoder, not ported yet:
-        a non-empty list raises NotImplementedError; an empty one (the JAX
-        engine's "clear the override") has nothing to clear."""
+        """Per-request contextual biasing: this stream's final phrases (and
+        its interim device beams) decode with the given hotwords.  With the
+        device decoder the bias is data: the request's automaton tables
+        become one row of the tick's batched finals call (stacked per-row
+        tables, padded to power-of-two node counts).  A list so large that
+        stacking it would pass MAX_STACKED_HOTWORD_BYTES gets a per-stream
+        device decoder sharing the engine's LM (per-phrase decodes).  An
+        empty list clears an earlier override.  On a greedy engine a
+        non-empty list raises NotImplementedError (the JAX engine builds a
+        host beam, ROADMAP A11)."""
+        override = None
+        tables = None
         if hotwords:
-            raise _not_ported("per-request hotword biasing", "A11")
+            if not self.device_finals:
+                raise _not_ported("per-request hotword biasing on a greedy engine "
+                                  "(host beam decoder)", "A11")
+            from tone_tpu_torch.ops.beam_decode import make_hotword_tables
+
+            base = self.decoder
+            tables = make_hotword_tables(hotwords, hotword_weight)
+            if self._stacked_hotword_bytes(tables) > self.MAX_STACKED_HOTWORD_BYTES:
+                override = DeviceBeamSearchCTCDecoder(
+                    base._lm, alpha=base.alpha, beta=base.beta,
+                    beam_width=base.beam_width, nbest=base.nbest_hyps,
+                    max_len=base.max_len, hotwords=hotwords,
+                    hotword_weight=hotword_weight, device=base.device)
+                tables = None
         with self._lock:
-            if sid not in self._streams:
+            stream = self._streams.get(sid)
+            if stream is None:
                 raise UnknownStreamError(f"unknown stream {sid}")
+            stream.decoder = override  # None clears an earlier override
+            stream.hotword_tables = tables
+            stream.hotwords = ((tuple(hotwords), float(hotword_weight))
+                               if hotwords else None)
+        if tables is not None:
+            # One warm per effective node bucket, on the pool, overlapping
+            # the stream's early audio.
+            bucket = self._effective_hotword_bucket(tables)
+            with self._lock:
+                fresh = bucket not in self._warmed_hotword_buckets
+                self._warmed_hotword_buckets.add(bucket)
+            if fresh:
+                self._decode_pool.submit(self._warm_hotword_bucket, bucket, tables)
 
     def set_stream_nbest(self, sid: int, n: int | None) -> None:
-        """Per-request n-best: ``None``/0/1 keep top-1 (the only mode of the
-        greedy decoder); more raises ValueError, as the JAX engine does for
-        a greedy decoder."""
+        """Per-request n-best: this stream's final phrases carry up to ``n``
+        alternative ``(text, score)`` transcripts (``TextPhrase.nbest``);
+        ``None``/0/1 clears.  With the device decoder the stream stays on
+        the batched finals call.  The greedy decoder raises ValueError."""
         n = int(n or 0)
+        if n < 0 or n > self.MAX_NBEST:
+            raise ValueError(f"nbest must be 0..{self.MAX_NBEST}, got {n}")
         with self._lock:
-            if sid not in self._streams:
+            stream = self._streams.get(sid)
+            if stream is None:
                 raise UnknownStreamError(f"unknown stream {sid}")
-        if n > 1:
-            raise ValueError(
-                "the configured decoder has no n-best support "
-                "(greedy decodes a single hypothesis; use a beam decoder)")
+            if n > 1 and not hasattr(stream.decoder or self.decoder, "nbest"):
+                raise ValueError(
+                    "the configured decoder has no n-best support "
+                    "(greedy decodes a single hypothesis; use a beam decoder)")
+            stream.nbest = 0 if n <= 1 else n
 
     def suspend_stream(self, sid: int) -> dict:
         """Serialize a drained live stream to a host-side snapshot (the flat
@@ -252,17 +358,18 @@ class MultiStreamEngine:
                     f"stream {sid} advanced mid-suspend — quiesce its feed "
                     "and retry")
             snap = {"acoustic_state": blob, **self._splitter.snapshot(slot),
-                    "nbest": 0, "hotwords": None}
+                    "nbest": stream.nbest, "hotwords": stream.hotwords}
             self._release_locked(sid)
             return snap
 
     def resume_stream(self, snapshot: dict) -> int:
         """Restore a ``suspend_stream`` snapshot into a fresh slot; returns
-        the new stream id.  Raises RuntimeError when no slot is free."""
-        if snapshot.get("hotwords"):
-            raise _not_ported("resuming a stream with hotword biasing", "A11")
-        if int(snapshot.get("nbest") or 0) > 1:
-            raise _not_ported("resuming an n-best stream", "A10/A11")
+        the new stream id; its n-best and hotwords come along.  Raises
+        RuntimeError when no slot is free."""
+        nbest = int(snapshot.get("nbest") or 0)
+        if snapshot.get("hotwords") and not self.device_finals:
+            raise _not_ported("resuming a hotword-biased stream on a greedy engine "
+                              "(host beam decoder)", "A11")
         with self._lock:
             if not self._free_slots:
                 self._evict_idle_locked(force_one=True)
@@ -271,11 +378,15 @@ class MultiStreamEngine:
             slot = self._free_slots.pop()
             sid = self._next_id
             self._next_id += 1
-            self._streams[sid] = _Stream(slot=slot)
+            self._streams[sid] = _Stream(slot=slot, nbest=nbest)
             self._slot_reset[slot] = False  # the snapshot IS the state
+            self._beam_force_reset[slot] = True
             self._splitter.restore(slot, snapshot)
         with self._device_lock:
             self.arena.write_slot(slot, snapshot["acoustic_state"])
+        hw = snapshot.get("hotwords")
+        if hw:
+            self.set_stream_hotwords(sid, list(hw[0]), hw[1])
         return sid
 
     def feed(self, sid: int, chunk: np.ndarray, is_last: bool = False) -> None:
@@ -345,6 +456,7 @@ class MultiStreamEngine:
             chunks = np.zeros((n, self.config.audio_chunk_samples), np.int16)
             active = np.zeros(n, bool)
             reset = np.zeros(n, bool)
+            beam_reset = np.zeros(n, bool)
             ticking: list[tuple[int, _Stream, bool]] = []
             for sid, stream in self._streams.items():
                 if not stream.pending or stream.slot is None:
@@ -355,7 +467,9 @@ class MultiStreamEngine:
                 active[slot] = True
                 # Consume a slot's reset flag only once it actually ticks.
                 reset[slot] = self._slot_reset[slot]
+                beam_reset[slot] = reset[slot] or self._beam_force_reset[slot]
                 self._slot_reset[slot] = False
+                self._beam_force_reset[slot] = False
                 ticking.append((sid, stream, is_last))
                 self._inflight.add(sid)
             self.stats.pending_streams = len(self._pending_bind)
@@ -373,20 +487,40 @@ class MultiStreamEngine:
         lasts = np.array([last for _, _, last in ticking], bool)
         tick_logprobs = logprobs[slot_ids].astype(np.float32, copy=False)
         by_slot = self._splitter.forward_batch(tick_logprobs, slot_ids, lasts)
-        argmax = tick_logprobs.argmax(axis=-1) if self.interim_transcripts else None
+        argmax = (tick_logprobs.argmax(axis=-1)
+                  if self.interim_transcripts and not self.interim_device_beam else None)
+        device_texts = None
+        if self.interim_device_beam:
+            device_texts = self._tick_device_beams(logprobs, ticking, by_slot, beam_reset)
 
         results: dict[int, list[Future]] = {}
         interims: dict[int, str] = {}
         finished: list[int] = []
+        batch_finals: list[tuple[Future, object, int, object]] = []
         blank = len(self._labels)
         with self._lock:
             for k, (sid, stream, is_last) in enumerate(ticking):
                 stream.ticks += 1
                 phrases = by_slot.get(stream.slot)
-                if phrases:
-                    results[sid] = [self._decode_pool.submit(self._decode, p)
-                                    for p in phrases]
-                if argmax is not None:
+                if phrases and self.device_finals and stream.decoder is None:
+                    # One batched device call per tick decodes these, with
+                    # the stream's n-best and hotword tables as row data.
+                    futs = [Future() for _ in phrases]
+                    batch_finals.extend((f, p, stream.nbest, stream.hotword_tables)
+                                        for f, p in zip(futs, phrases))
+                    results[sid] = futs
+                elif phrases:
+                    results[sid] = [self._decode_pool.submit(
+                        self._decode, p, stream.decoder, stream.nbest) for p in phrases]
+                if device_texts is not None:
+                    if phrases or is_last:
+                        stream.interim_sent = ""
+                    else:
+                        text = device_texts[stream.slot]
+                        if text and text != stream.interim_sent:
+                            stream.interim_sent = text
+                            interims[sid] = text
+                elif argmax is not None:
                     if phrases or is_last:
                         # Phrase boundary: restart the interim collapse.
                         stream.interim_prev = -1
@@ -411,6 +545,10 @@ class MultiStreamEngine:
                 self._release_locked(sid)
             self._finished_since_poll.extend(finished)
             self._inflight.difference_update(s for s, _, _ in ticking)
+        if batch_finals:
+            # The pool task dispatches the device call and resolves the
+            # futures; the tick thread never waits for the decode.
+            self._decode_pool.submit(self._decode_batch, batch_finals)
         self.last_interims = interims
 
         self.stats.ticks += 1
@@ -420,8 +558,127 @@ class MultiStreamEngine:
         return results
 
     def warmup(self) -> None:
-        """Run the arena step once before serving traffic."""
+        """Run every per-tick device path once before serving traffic: the
+        arena step and, when enabled, the batched finals call at every frame
+        bucket (plain and for the hotword warmup buckets) and the interim
+        beam arena's reset/advance/readout."""
         self.arena.warmup()
+        if self.device_finals:
+            self._warm_decode_buckets(self.decoder)
+            from tone_tpu_torch.ops.beam_decode import make_hotword_tables
+
+            for b in sorted(set(self._hotword_warmup_buckets)):
+                eff = self._effective_hotword_bucket(
+                    make_hotword_tables(("а",), pad_nodes=b))
+                with self._lock:
+                    if eff in self._warmed_hotword_buckets:
+                        continue
+                    self._warmed_hotword_buckets.add(eff)
+                try:
+                    self._warm_decode_buckets(
+                        self.decoder, hotwords=make_hotword_tables(("а",), pad_nodes=eff))
+                except Exception:
+                    with self._lock:
+                        self._warmed_hotword_buckets.discard(eff)
+                    raise
+        if self.interim_device_beam:
+            init, reset, advance, top = self._interim_beam_ops()
+            n = self.arena.n_slots
+            if self._device_beams is None:
+                self._device_beams = init(n, self._device_beam_width,
+                                          self._device_beam_max_len, self.arena.device)
+            state = reset(self._device_beams, np.zeros(n, bool))
+            frames = self.config.encoder.chunk_size
+            # zero active frames: the whole path runs, states unchanged
+            state = advance(state, np.full((n, frames, len(self._labels) + 1), -3.5,
+                                           np.float32), np.zeros(n, np.int64))
+            top(state)[0].cpu()
+            self._device_beams = state
+
+    def _warm_decode_buckets(self, decoder, hotwords=None) -> None:
+        """Run a decoder once at every frame bucket a serving phrase can
+        fall in (the splitter force-splits phrases, so the set is closed);
+        ``hotwords``: the stacked per-row-biased call at its node bucket."""
+        from tone_tpu_torch.splitter import StreamingLogprobSplitter as _S
+
+        max_frames = _S.MAX_PHRASE_DURATION + 2 * _S.SPEECH_EXPAND_SIZE
+        v = len(self._labels) + 1
+        t = 64
+        while True:
+            decoder.forward_batch(
+                [np.full((min(t, max_frames), v), -3.5, np.float32)],
+                hotword_rows=[hotwords] if hotwords is not None else None)
+            if t >= max_frames:
+                break
+            t <<= 1
+
+    def _stacked_hotword_bytes(self, tables) -> int:
+        """Bytes a batched finals call would upload if this request's
+        tables ride the stacked path (at the effective node bucket)."""
+        batch = getattr(self.decoder, "max_batch", None) or 1
+        n_nodes = self._effective_hotword_bucket(tables)
+        return 3 * 4 * batch * n_nodes * int(tables.next_node.shape[1])
+
+    def _effective_hotword_bucket(self, tables) -> int:
+        """The node count a serving call stacks for these tables: the max of
+        theirs and the engine decoder's own (unbiased rows inherit those)."""
+        bucket = int(tables.next_node.shape[0])
+        base = getattr(self.decoder, "hotword_tables", None)
+        if base is not None:
+            bucket = max(bucket, int(base.next_node.shape[0]))
+        return bucket
+
+    def _warm_hotword_bucket(self, bucket: int, tables) -> None:
+        """Pool task: run the batched finals call for a request's node
+        bucket once; a failed warm un-marks the bucket so a later request
+        retries."""
+        try:
+            from tone_tpu_torch.ops.beam_decode import pad_hotword_tables
+
+            self._warm_decode_buckets(self.decoder,
+                                      hotwords=pad_hotword_tables(tables, bucket))
+        except Exception:  # noqa: BLE001 — warm is best-effort; real decodes
+            with self._lock:  # surface their own errors through futures
+                self._warmed_hotword_buckets.discard(bucket)
+
+    def _interim_beam_ops(self):
+        """(init, reset, advance, top_tokens) for the interim device arena —
+        the hotword-biased variants when the final decoder has hotword
+        tables, so interim partials bias like finals."""
+        from tone_tpu_torch.ops import beam_decode as bd
+
+        hw = getattr(self.decoder, "hotword_tables", None)
+        if isinstance(hw, bd.HotwordTables):
+            return (bd.init_hot_beam_state, bd.hot_beam_reset,
+                    lambda st, lp, fr: bd.hot_beam_advance(st, lp, fr, hotwords=hw),
+                    bd.hot_beam_top_tokens)
+        return (bd.init_beam_state, bd.beam_reset,
+                lambda st, lp, fr: bd.beam_advance(st, lp, fr), bd.beam_top_tokens)
+
+    def _tick_device_beams(self, logprobs, ticking, by_slot, reset):
+        """Advance the device beam arena one tick and read back the best
+        hypothesis per slot.  Slots reset when the acoustic slot resets (a
+        new or resumed stream) or at a phrase boundary (the finalized
+        phrase goes through the real decoder); other ticking slots advance
+        over this tick's frames."""
+        from tone_tpu_torch.ops.beam_decode import top_texts
+
+        init, reset_fn, advance, top = self._interim_beam_ops()
+        n = self.arena.n_slots
+        if self._device_beams is None:
+            self._device_beams = init(n, self._device_beam_width,
+                                      self._device_beam_max_len, self.arena.device)
+        reset_mask = np.asarray(reset, bool).copy()
+        frames = np.zeros(n, np.int64)
+        for _, stream, is_last in ticking:
+            if by_slot.get(stream.slot) or is_last:
+                reset_mask[stream.slot] = True
+            else:
+                frames[stream.slot] = logprobs.shape[1]
+        state = reset_fn(self._device_beams, reset_mask)
+        state = advance(state, np.asarray(logprobs, np.float32), frames)
+        self._device_beams = state
+        return top_texts(*top(state))
 
     def pop_finished(self) -> list[int]:
         """Stream ids whose final (is_last) chunk was processed since the
@@ -440,13 +697,75 @@ class MultiStreamEngine:
             self._evicted_since_poll = []
             return out
 
-    def _decode(self, logprob_phrase) -> TextPhrase:
-        text = self.decoder.forward(np.ascontiguousarray(logprob_phrase.logprobs))
+    def _word_times(self, logprob_phrase, text: str):
+        if not self.word_timestamps:
+            return None
+        return word_timings(self.config, logprob_phrase, text)
+
+    def _decode(self, logprob_phrase, decoder=None, nbest: int = 0) -> TextPhrase:
+        decoder = decoder or self.decoder
+        logprobs = np.ascontiguousarray(logprob_phrase.logprobs)
+        alternatives = None
+        if nbest > 1 and hasattr(decoder, "nbest"):
+            ranked = decoder.nbest(logprobs, nbest)
+            text = ranked[0][0] if ranked else ""
+            alternatives = tuple(ranked)
+        else:
+            text = decoder.forward(logprobs)
         start, end = phrase_times(self.config, logprob_phrase.start_frame,
                                   logprob_phrase.end_frame)
         with self._lock:
             self.stats.phrases_decoded += 1
-        return TextPhrase(text=text, start_time=start, end_time=end)
+        return TextPhrase(text=text, start_time=start, end_time=end,
+                          words=self._word_times(logprob_phrase, text),
+                          nbest=alternatives)
+
+    def _decode_batch(self, items: list[tuple[Future, object, int, object]]) -> None:
+        """Decode a tick's completed phrases in one batched device call and
+        resolve each phrase's future.  Mixed n-best rides the same call
+        (``forward_batch_nbest`` at the largest n asked for), and so do
+        per-request hotwords (each item's tables, or None, are a row of the
+        stacked tables).  Word alignment, host work, runs on the pool."""
+        max_n = max((n for _, _, n, _ in items), default=0)
+        hotword_rows = [hw for _, _, _, hw in items]
+        if not any(hw is not None for hw in hotword_rows):
+            hotword_rows = None
+        try:
+            lps = [np.ascontiguousarray(p.logprobs) for _, p, _, _ in items]
+            if max_n > 1:
+                ranked_rows = self.decoder.forward_batch_nbest(lps, max_n, hotword_rows)
+                texts = [r[0][0] if r else "" for r in ranked_rows]
+            else:
+                texts = self.decoder.forward_batch(lps, hotword_rows)
+                ranked_rows = [None] * len(items)
+        except Exception as e:  # noqa: BLE001 — futures must resolve
+            for fut, _, _, _ in items:
+                fut.set_exception(e)
+            return
+        for (fut, phrase, n, _), text, ranked in zip(items, texts, ranked_rows):
+            start, end = phrase_times(self.config, phrase.start_frame, phrase.end_frame)
+            with self._lock:
+                self.stats.phrases_decoded += 1
+            alternatives = tuple(ranked[:n]) if ranked and n > 1 else None
+            if self.word_timestamps and text:
+                def finish(fut=fut, phrase=phrase, text=text, start=start, end=end,
+                           alternatives=alternatives):
+                    try:
+                        fut.set_result(TextPhrase(
+                            text=text, start_time=start, end_time=end,
+                            words=self._word_times(phrase, text), nbest=alternatives))
+                    except Exception as e:  # noqa: BLE001
+                        fut.set_exception(e)
+
+                try:
+                    self._decode_pool.submit(finish)
+                except RuntimeError:
+                    # pool already shut down: resolve inline so no caller
+                    # blocked on fut.result() waits forever
+                    finish()
+            else:
+                fut.set_result(TextPhrase(text=text, start_time=start, end_time=end,
+                                          nbest=alternatives))
 
     # -- eviction ----------------------------------------------------------
 

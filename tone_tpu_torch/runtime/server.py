@@ -8,13 +8,14 @@ Speaks the reference demo protocol:
   buffers and re-chunks to 300 ms), an *empty* binary message means
   end-of-stream;
 * server pushes ``{"event": "transcript", "text", "start_time", "end_time"}``
-  per finalized phrase and closes after the flush.
+  per finalized phrase (with ``words`` and ``nbest`` when the engine gives
+  them) and closes after the flush.
 
 Every connection maps to a slot in the shared device arena and all live
 connections advance together in one batched step per tick.  A JSON text
-frame asking for hotwords or n-best gets the JAX server's error event for
-an unsupported option (the greedy engine has neither).  The bundled browser
-page of the JAX server is not served.  ``websockets`` is imported inside the
+frame sets per-request hotwords and n-best; an engine that cannot serve
+them (greedy) answers with the JAX server's error event.  The bundled
+browser page of the JAX server is not served.  ``websockets`` is imported inside the
 functions that need it, so the engine and this module load without it.
 
 Run:  python -m tone_tpu_torch serve [--port 8080]
@@ -252,10 +253,9 @@ class TranscriptionServer:
                         # frame configures per-REQUEST options — hotword
                         # biasing ('hotwords' list + 'hotword_weight') and/or
                         # n-best ('nbest').  Every text frame gets a reply
-                        # (config or error); the greedy engine answers a
-                        # non-empty hotword list or nbest > 1 with an error
-                        # event, as the JAX server does for an unsupported
-                        # option.
+                        # (config or error); an empty hotword list / nbest 0
+                        # clears an earlier override, and an engine without
+                        # a beam decoder answers with an error event.
                         try:
                             cfg_msg = json.loads(message)
                             if not isinstance(cfg_msg, dict) or not (
@@ -270,8 +270,11 @@ class TranscriptionServer:
                                         not all(isinstance(x, str) for x in hw):
                                     raise ValueError(
                                         "'hotwords' must be a list of strings")
-                                engine.set_stream_hotwords(
-                                    sid, hw, float(cfg_msg.get("hotword_weight", 10.0)))
+                                # building the automaton tables is host
+                                # work: keep it off the event loop
+                                await asyncio.to_thread(
+                                    engine.set_stream_hotwords, sid, hw,
+                                    float(cfg_msg.get("hotword_weight", 10.0)))
                                 applied["hotwords"] = len(hw)
                             if "nbest" in cfg_msg:
                                 n = cfg_msg["nbest"]
@@ -385,6 +388,10 @@ class TranscriptionServer:
                     "start_time": phrase.start_time,
                     "end_time": phrase.end_time,
                 }
+                if phrase.words is not None:
+                    event["words"] = [vars(w) for w in phrase.words]
+                if phrase.nbest is not None:
+                    event["nbest"] = [{"text": t, "score": s} for t, s in phrase.nbest]
                 await websocket.send(json.dumps(event, ensure_ascii=False))
             except Exception:  # noqa: BLE001 — never kill the sender loop
                 logger.exception("failed to deliver phrase")
