@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tone_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-check]
 
 Drives the port only — it imports neither ``jax`` nor ``tone_tpu`` — and
 prints one JSON line per phase:
@@ -35,18 +35,40 @@ prints one JSON line per phase:
             defaults (beam width 32, n-best 8, max_len 2048, 64 rows per
             call) on seeded blank-heavy logprobs in every frame bucket 64 …
             2048, LM-free, with an order-3 ARPA LM (estimated by the port
-            from a seeded synthetic corpus) and with hotwords, each held
-            against the same decoder on the CPU (equal top texts, best scores
-            within 1e-3); the LM once more as a KenLM probing binary (equal
-            texts); ms and device ms per call, launches per frame, idle share;
+            from a seeded synthetic corpus) and with hotwords; the same LM
+            fused into the search (``fusion=True``): as a ``DeviceLM``
+            (``fused``), as the probing binary's own tables
+            (``fused_probing``) and with hotwords (``fused_hotwords``); ms
+            and device ms per call, launches per frame, idle share at every
+            bucket; the LM-free, LM and hotword variants held against the
+            same decoder on the CPU at every bucket, the fused ones at 64,
+            128 and 256 (equal top texts, best scores within 1e-3); with
+            ``--profile-check``, each profile also read through
+            ``key_averages()`` and each non-fused call profiled twice (adds
+            minutes); the LM once more as a KenLM probing binary (equal texts
+            at every bucket); the agreement of the ARPA and probing fused
+            texts, and of the fused top-1 with the port's host beam search
+            (W=32, T=64);
 9. serve_beam  the ``serve`` phase's engine with the ``beam_decode`` LM
             decoder for finals, the interim device beam arena (width 8), word
             timestamps, one stream with request hotwords and one with n-best
             4: every stream yields a final, phrase and word times are
             ordered, every tick launches the GLU kernel 32 times, and every
-            final's text equals the port's CPU decoder on that phrase.
+            final's text equals the port's CPU decoder on that phrase;
+10. serve_fused  the same cell with the fused decoder (``fusion=True``):
+            warmup runs the fused finals ladder; one stream with request
+            hotwords (stacked rows), one with n-best 4; every final equals
+            the port's fused decoder on the CPU on that phrase's logprobs;
+            every tick launches the GLU kernel 32 times; each finals call is
+            timed in the run and alone;
+11. serve_host_beam  the same cell with the host ``BeamSearchCTCDecoder``
+            (the native C++ search, width 200, built by this run), carried
+            host-beam interims and request hotwords on one stream: the
+            native library must be built and used, every final equals a
+            second decode of its logprobs.
 
-Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
+Every phase line after ``device`` gives the phase's seconds as
+``phase_s``.  Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
 package beside this script, it exits non-zero before printing a result.
 """
@@ -551,6 +573,14 @@ BEAM_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 BEAM_SCORE_TOL = 1e-3   # best score, card vs CPU
 BEAM_TIE = 1e-5         # two beams closer than this may rank either way
 BEAM_HOTWORDS = ["да", "нет", "привет мир", "колокол"]
+# The fused variants' CPU reference runs at these buckets only: above them it
+# takes longer than the card's calls and would push the script past half its
+# time limit.  The other variants are held against the CPU at every bucket.
+FUSED_CPU_BUCKETS = (64, 128, 256)
+# key_averages() builds a Python object per event, which takes minutes for the
+# ~10^6 launches of a fused call at 2048 frames: above this many events only
+# the raw events are summed.
+KEY_AVERAGES_MAX_EVENTS = 110_000
 LONGEST_PHRASE = 2000 + 2 * 3   # the splitter's force split plus its margins
 
 
@@ -582,17 +612,21 @@ def beam_lm_tables(seed: int = 0):
     return estimate_ngram_lm(sents, order=3)
 
 
-def beam_decoder(lm, device, hotwords=None):
+def beam_decoder(lm, device, hotwords=None, fusion=False):
     from tone_tpu_torch.decoder import DeviceBeamSearchCTCDecoder
 
     dec = DeviceBeamSearchCTCDecoder(lm, beam_width=BEAM_WIDTH, nbest=BEAM_NBEST,
-                                     max_len=2048, hotwords=hotwords, device=device)
+                                     max_len=2048, hotwords=hotwords, fusion=fusion,
+                                     device=device)
     dec.batch_floor = dec.max_batch = BEAM_ROWS
     return dec
 
 
-def _beam_device_profile(fn) -> tuple[float, int]:
-    """(device ms, kernel launches) of one call, by torch.profiler."""
+def _beam_device_profile(fn, check: bool = False) -> dict:
+    """Device ms and kernel launches of one call, by torch.profiler: summed
+    over the raw events and, with ``check``, read from the same profile
+    through key_averages() as well where the call has at most
+    KEY_AVERAGES_MAX_EVENTS events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -600,14 +634,19 @@ def _beam_device_profile(fn) -> tuple[float, int]:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type().name == "CUDA"]
     if not events:
         raise AssertionError("the profiler saw no device time for the beam search")
-    return (sum(e.self_device_time_total for e in events) / 1e3,
-            sum(e.count for e in events))
+    out = {"device_ms": sum(e.duration_ns() for e in events) / 1e6, "launches": len(events)}
+    if check and len(events) <= KEY_AVERAGES_MAX_EVENTS:
+        avg = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        out["device_ms_key_averages"] = sum(e.self_device_time_total for e in avg) / 1e3
+        out["launches_key_averages"] = sum(e.count for e in avg)
+    return out
 
 
-def phase_beam_decode() -> dict:
+def phase_beam_decode(profile_check: bool = False) -> dict:
     import tempfile
     from pathlib import Path
 
@@ -615,27 +654,55 @@ def phase_beam_decode() -> dict:
     from tone_tpu_torch.decoding.kenlm_binary import write_kenlm_binary
     from tone_tpu_torch.decoding.lm import load_lm
 
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder
+    from tone_tpu_torch.decoding.device_lm import DeviceLM, DeviceProbingLM, load_device_lm
+
     tables = beam_lm_tables()
     with tempfile.TemporaryDirectory() as tmp:
         write_arpa(tables, Path(tmp) / "lm.arpa")
         write_kenlm_binary(tables, Path(tmp) / "lm.bin")
         arpa, binary = load_lm(Path(tmp) / "lm.arpa"), load_lm(Path(tmp) / "lm.bin")
+        t0 = time.perf_counter()
+        dev_arpa = load_device_lm(Path(tmp) / "lm.arpa")
+        dev_probing = load_device_lm(Path(tmp) / "lm.bin")
+        build_s = time.perf_counter() - t0
+        host = BeamSearchCTCDecoder.from_local(Path(tmp) / "lm.arpa")
     if type(binary).__name__ != "KenLMBinary":
         raise AssertionError(f"load_lm read the probing binary as {type(binary).__name__}")
-    variants = {"no_lm": (None, None), "lm": (arpa, None), "hotwords": (None, BEAM_HOTWORDS)}
+    if not (isinstance(dev_arpa, DeviceLM) and isinstance(dev_probing, DeviceProbingLM)):
+        raise AssertionError(f"load_device_lm gave {type(dev_arpa)}, {type(dev_probing)}")
+    # (LM, hotwords, fusion, seed group): the fused variants decode the LM
+    # variant's logprobs, so their texts can be compared with each other
+    variants = {"no_lm": (None, None, False, 0), "lm": (arpa, None, False, 1),
+                "hotwords": (None, BEAM_HOTWORDS, False, 2),
+                "fused": (dev_arpa, None, True, 1),
+                "fused_probing": (dev_probing, None, True, 1),
+                "fused_hotwords": (dev_arpa, BEAM_HOTWORDS, True, 3)}
     rows, texts_by_variant = [], {}
-    for v_idx, (variant, (lm, hotwords)) in enumerate(variants.items()):
-        card, cpu = beam_decoder(lm, "cuda", hotwords), beam_decoder(lm, "cpu", hotwords)
+    for variant, (lm, hotwords, fusion, group) in variants.items():
+        card = beam_decoder(lm, "cuda", hotwords, fusion)
+        cpu = beam_decoder(lm, "cpu", hotwords, fusion)
         texts_by_variant[variant] = []
         for t_pad in BEAM_BUCKETS:
-            lps = beam_logprobs(1000 * v_idx + t_pad, BEAM_ROWS, t_pad)
+            lps = beam_logprobs(1000 * group + t_pad, BEAM_ROWS, t_pad)
             if t_pad == BEAM_BUCKETS[0]:
                 card.forward_batch_nbest(lps[:1], 1)   # first use of the stream
             t0 = time.perf_counter()
             got = card.forward_batch_nbest(lps, BEAM_NBEST)
             ms = (time.perf_counter() - t0) * 1e3
-            device_ms, launches = _beam_device_profile(
-                lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
+            prof = _beam_device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST),
+                                        profile_check)
+            case = {"variant": variant, "frames": t_pad, "rows": BEAM_ROWS, "ms": ms, **prof,
+                    "launches_per_frame": prof["launches"] / t_pad,
+                    "device_idle_share": 1.0 - prof["device_ms"] / ms}
+            if profile_check and not fusion:
+                # the same call profiled again: how far the count moves
+                again = _beam_device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
+                case.update(launches_again=again["launches"], device_ms_again=again["device_ms"])
+            texts_by_variant[variant].append([h[0][0] if h else "" for h in got])
+            if fusion and t_pad not in FUSED_CPU_BUCKETS:
+                rows.append(case)
+                continue
             t0 = time.perf_counter()
             want = cpu.forward_batch_nbest(lps, BEAM_NBEST)
             cpu_ms = (time.perf_counter() - t0) * 1e3
@@ -649,11 +716,7 @@ def phase_beam_decode() -> dict:
                     raise AssertionError(f"beam {variant} T={t_pad} row {r}: best score "
                                          f"card vs CPU {err} > {BEAM_SCORE_TOL}")
                 ties += len(g) > 1 and g[0][1] - g[1][1] < BEAM_TIE
-            texts_by_variant[variant].append([h[0][0] for h in got])
-            rows.append({"variant": variant, "frames": t_pad, "rows": BEAM_ROWS,
-                         "ms": ms, "device_ms": device_ms, "cpu_ms": cpu_ms,
-                         "launches": launches, "launches_per_frame": launches / t_pad,
-                         "device_idle_share": 1.0 - device_ms / ms,
+            rows.append({**case, "cpu_ms": cpu_ms,
                          "max_score_err": max(abs(g[0][1] - w[0][1])
                                               for g, w in zip(got, want)),
                          "near_ties": ties})
@@ -663,113 +726,179 @@ def phase_beam_decode() -> dict:
         got = card_bin.forward_batch(beam_logprobs(1000 + t_pad, BEAM_ROWS, t_pad))
         if got != texts_by_variant["lm"][k]:
             raise AssertionError(f"KenLM probing binary vs ARPA texts differ at T={t_pad}")
+    # The fused search over the ARPA tables and over the probing binary's own
+    # tables (the same LM): the share of rows whose texts agree.
+    pairs = [(a, b) for ta, tb in zip(texts_by_variant["fused"], texts_by_variant["fused_probing"])
+             for a, b in zip(ta, tb)]
+    probing_agree = sum(a == b for a, b in pairs) / len(pairs)
+    # The fused top-1 against the host beam search (the native C++ decoder,
+    # full shallow fusion) at the same width on the 64-frame bucket.
+    host.beam_width = BEAM_WIDTH
+    if not host._use_native:
+        raise AssertionError("the host beam decoder did not build its native library")
+    lps = beam_logprobs(1000 + BEAM_BUCKETS[0], BEAM_ROWS, BEAM_BUCKETS[0])
+    host_texts = [host.forward(lp) for lp in lps]
+    host_agree = sum(a == b for a, b in zip(texts_by_variant["fused"][0], host_texts)) / len(lps)
     return {"phase": "beam_decode", "beam_width": BEAM_WIDTH, "nbest": BEAM_NBEST,
             "max_len": 2048, "score_tol": BEAM_SCORE_TOL, "tie": BEAM_TIE,
             "lm": {"order": 3, "ngrams": [len(t) for t in tables]},
+            "device_lm": {"build_s": build_s, "table_rows": int(dev_arpa.keys1.shape[0]),
+                          "probe": dev_arpa.probe, "edge_probe": dev_arpa.edge_probe,
+                          "probing_table_rows": int(dev_probing.keys1.shape[0])},
+            "fused_cpu_buckets": list(FUSED_CPU_BUCKETS), "profile_check": profile_check,
+            "fused_arpa_vs_probing_text_agreement": probing_agree,
+            "fused_vs_host_beam_top1_agreement": host_agree,
             "ms": "host clock around one call (ends with the n-best read back); "
-                  "device_ms from torch.profiler over one more call",
+                  "device_ms and launches summed over torch.profiler's raw events of "
+                  "one more call; *_key_averages: the same profile through "
+                  "key_averages(), where it has at most KEY_AVERAGES_MAX_EVENTS "
+                  "events; *_again: a second profiled call (LM-free, LM, hotwords); "
+                  "both with --profile-check only",
             "cases": rows}
 
 
-def phase_serve_beam() -> dict:
+def _serve_cell(engine, setup) -> dict:
+    """Drive the serve cell through ``engine`` as the server's tick loop
+    does: three streams of 3 s of seeded PCM (with the server's padding),
+    ``setup(engine, sids)`` before the audio; the first ticks run under the
+    profiler; every tick must launch the GLU kernel 32 times and every
+    stream must yield ordered final phrases."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tone_tpu_torch.config import ToneConfig
-    from tone_tpu_torch.core.model import init_model_params
-    from tone_tpu_torch.decoding.lm import ArpaLM
     from tone_tpu_torch.ops.glu_ff import glu_ff2
-    from tone_tpu_torch.runtime.engine import MultiStreamEngine
 
-    cfg = ToneConfig()
+    cfg = engine.config
     n = cfg.audio_chunk_samples
-    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
-    lm = ArpaLM(beam_lm_tables())
-    engine = MultiStreamEngine(variables, cfg, n_slots=SERVE_SLOTS, device="cuda",
-                               decoder=beam_decoder(lm, "cuda"), interim_device_beam=True,
-                               interim_beam_width=8, word_timestamps=True)
-    finals_ms, decoded = [], []
-    real_nbest = engine.decoder.forward_batch_nbest
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    sids = [engine.open_stream() for _ in range(3)]
+    setup(engine, sids)
+    for sid in sids:
+        pcm = rng.integers(-20000, 20000, 10 * n).astype(np.int16)  # 3 s
+        audio = np.concatenate([np.zeros(cfg.padding, np.int16), pcm,
+                                np.zeros(cfg.padding, np.int16)])
+        for i in range(0, len(audio), n):
+            engine.feed(sid, audio[i:i + n])
+        engine.close_stream(sid)
 
-    def timed(lps, k, hotword_rows=None):
+    glu_ff2.launches = 0
+    ticks0 = engine.stats.ticks
+    futures = {sid: [] for sid in sids}
+    done: set[int] = set()
+    tick_ms, interims = [], 0
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    while len(done) < len(sids):
         t0 = time.perf_counter()
-        out = real_nbest(lps, k, hotword_rows)
-        finals_ms.append(((time.perf_counter() - t0) * 1e3, lps, k, hotword_rows))
-        decoded.extend(zip(lps, hotword_rows or [None] * len(lps),
-                           [r[0][0] if r else "" for r in out]))
-        return out
-
-    try:
-        t0 = time.perf_counter()
-        engine.warmup()
-        warmup_s = time.perf_counter() - t0
-        engine.decoder.forward_batch_nbest = timed
-        rng = np.random.default_rng(1)
-        sids = [engine.open_stream() for _ in range(3)]
-        # 23 trie nodes: the 32-node bucket warmup() ran, so no warm starts
-        engine.set_stream_hotwords(sids[1], BEAM_HOTWORDS, 5.0)
-        engine.set_stream_nbest(sids[2], 4)
-        for sid in sids:
-            pcm = rng.integers(-20000, 20000, 10 * n).astype(np.int16)  # 3 s
-            audio = np.concatenate([np.zeros(cfg.padding, np.int16), pcm,
-                                    np.zeros(cfg.padding, np.int16)])
-            for i in range(0, len(audio), n):
-                engine.feed(sid, audio[i:i + n])
-            engine.close_stream(sid)
-
-        glu_ff2.launches = 0
-        ticks0 = engine.stats.ticks
-        futures = {sid: [] for sid in sids}
-        done: set[int] = set()
-        tick_ms, interims = [], 0
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-        while len(done) < len(sids):
-            t0 = time.perf_counter()
-            for sid, futs in engine.tick().items():
-                futures[sid].extend(futs)
-            tick_ms.append((time.perf_counter() - t0) * 1e3)
-            interims += len(engine.last_interims)
-            if len(tick_ms) == SERVE_PROFILED_TICKS:
-                torch.cuda.synchronize()
-                prof.stop()
-            done.update(engine.pop_finished())
-            if len(tick_ms) > 100:
-                raise AssertionError("streams did not finish within 100 ticks")
-        if len(tick_ms) <= SERVE_PROFILED_TICKS:
-            raise AssertionError(f"only {len(tick_ms)} ticks: too few to profile")
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_PROFILED_TICKS
-        ticks = engine.stats.ticks - ticks0
-        launches = glu_ff2.launches
-        if launches != 32 * ticks:
-            raise AssertionError(f"{launches} GLU launches over {ticks} ticks")
-        phrases = {sid: [f.result(timeout=300) for f in futs] for sid, futs in futures.items()}
-        # each finals call once more, alone (no tick or alignment beside it)
-        finals_calls = []
-        for ms, lps, k, rows in finals_ms:
-            t0 = time.perf_counter()
-            real_nbest(lps, k, rows)
-            finals_calls.append({"phrases": len(lps), "frames": [len(lp) for lp in lps],
-                                 "hotword_rows": rows is not None, "n": k, "ms": ms,
-                                 "alone_ms": (time.perf_counter() - t0) * 1e3})
-    finally:
-        engine.shutdown()
+        for sid, futs in engine.tick().items():
+            futures[sid].extend(futs)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        interims += len(engine.last_interims)
+        if len(tick_ms) == SERVE_PROFILED_TICKS:
+            torch.cuda.synchronize()
+            prof.stop()
+        done.update(engine.pop_finished())
+        if len(tick_ms) > 100:
+            raise AssertionError("streams did not finish within 100 ticks")
+    if len(tick_ms) <= SERVE_PROFILED_TICKS:
+        raise AssertionError(f"only {len(tick_ms)} ticks: too few to profile")
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_PROFILED_TICKS
+    ticks = engine.stats.ticks - ticks0
+    launches = glu_ff2.launches
+    if launches != 32 * ticks:
+        raise AssertionError(f"{launches} GLU launches over {ticks} ticks")
+    phrases = {sid: [f.result(timeout=600) for f in futs] for sid, futs in futures.items()}
     for sid, ps in phrases.items():
         if not ps:
             raise AssertionError(f"stream {sid} yielded no final phrase")
         times = [t for p in ps for t in (p.start_time, p.end_time)]
         if times != sorted(times) or any(t < 0 for t in times):
             raise AssertionError(f"stream {sid}: phrase times out of order: {times}")
-        for p in ps:
-            w_times = [t for w in p.words or () for t in (w.start_time, w.end_time)]
-            if w_times != sorted(w_times) or (p.text and not p.words):
-                raise AssertionError(f"stream {sid}: word times {w_times} of {p.text!r}")
+    return {"sids": sids, "phrases": phrases, "out": {
+        "slots": SERVE_SLOTS, "streams": len(sids), "ticks": ticks, "glu_launches": launches,
+        "warmup_s": warmup_s, "tick_ms_median": float(np.median(tick_ms[SERVE_PROFILED_TICKS:])),
+        "tick_ms_max": float(np.max(tick_ms)), "profiled_ticks": SERVE_PROFILED_TICKS,
+        "device_ms_per_tick": device_ms, "interim_events": interims,
+        "phrases": {str(sid): [[p.text[:40], p.start_time, p.end_time,
+                                len(p.words or ()), len(p.nbest or ())] for p in ps]
+                    for sid, ps in phrases.items()}}}
+
+
+def _timed_finals(engine):
+    """Wrap the engine decoder's batched finals call: each call's host-clock
+    ms, arguments and top texts are recorded."""
+    calls, decoded = [], []
+    real = engine.decoder.forward_batch_nbest
+
+    def timed(lps, k, hotword_rows=None):
+        t0 = time.perf_counter()
+        out = real(lps, k, hotword_rows)
+        calls.append(((time.perf_counter() - t0) * 1e3, lps, k, hotword_rows))
+        decoded.extend(zip(lps, hotword_rows or [None] * len(lps),
+                           [r[0][0] if r else "" for r in out]))
+        return out
+
+    def alone():
+        """Each finals call once more, alone (no tick or alignment beside it)."""
+        out = []
+        for ms, lps, k, rows in calls:
+            t0 = time.perf_counter()
+            real(lps, k, rows)
+            out.append({"phrases": len(lps), "frames": [len(lp) for lp in lps],
+                        "hotword_rows": rows is not None, "n": k, "ms": ms,
+                        "alone_ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    engine.decoder.forward_batch_nbest = timed
+    return decoded, alone
+
+
+def _device_serve_phase(name, lm, fusion, word_timestamps, interim_device_beam) -> dict:
+    """The serve cell with a device-beam decoder for finals (batched calls),
+    one stream with request hotwords and one with n-best 4; every final
+    must equal the port's same decoder on the CPU on that phrase."""
+    import torch
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.runtime.engine import MultiStreamEngine
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    engine = MultiStreamEngine(variables, cfg, n_slots=SERVE_SLOTS, device="cuda",
+                               decoder=beam_decoder(lm, "cuda", fusion=fusion),
+                               interim_device_beam=interim_device_beam,
+                               interim_beam_width=8, word_timestamps=word_timestamps)
+    decoded, alone = [], None
+
+    def setup(engine, sids):
+        nonlocal decoded, alone
+        decoded, alone = _timed_finals(engine)
+        # 23 trie nodes: the 32-node bucket warmup() ran, so no warm starts
+        engine.set_stream_hotwords(sids[1], BEAM_HOTWORDS, 5.0)
+        engine.set_stream_nbest(sids[2], 4)
+
+    try:
+        run = _serve_cell(engine, setup)
+        finals_calls = alone()
+    finally:
+        engine.shutdown()
+    sids, phrases = run["sids"], run["phrases"]
+    if word_timestamps:
+        for sid, ps in phrases.items():
+            for p in ps:
+                w_times = [t for w in p.words or () for t in (w.start_time, w.end_time)]
+                if w_times != sorted(w_times) or (p.text and not p.words):
+                    raise AssertionError(f"stream {sid}: word times {w_times} of {p.text!r}")
     for p in phrases[sids[2]]:
         if not p.nbest or p.nbest[0][0] != p.text:
             raise AssertionError(f"n-best stream: alternatives {p.nbest} of {p.text!r}")
     # every final against the port's CPU decoder on that phrase's logprobs
-    cpu = beam_decoder(lm, "cpu")
+    cpu = beam_decoder(lm, "cpu", fusion=fusion)
     cpu.batch_floor, cpu.max_batch = 1, None
     finals = [p.text for sid in sids for p in phrases[sid]]
     if sorted(finals) != sorted(text for _, _, text in decoded):
@@ -777,22 +906,120 @@ def phase_serve_beam() -> dict:
     for lp, hw, text in decoded:
         want = cpu.forward_batch([lp], [hw] if hw is not None else None)[0]
         if text != want:
-            raise AssertionError(f"final on the card {text!r} != CPU decoder {want!r}")
-    return {"phase": "serve_beam", "slots": SERVE_SLOTS, "streams": len(sids),
-            "ticks": ticks, "glu_launches": launches, "warmup_s": warmup_s,
-            "tick_ms_median": float(np.median(tick_ms[SERVE_PROFILED_TICKS:])),
-            "tick_ms_max": float(np.max(tick_ms)),
-            "profiled_ticks": SERVE_PROFILED_TICKS, "device_ms_per_tick": device_ms,
-            "interim_events": interims,
-            "finals_calls": finals_calls,
-            "phrases": {str(sid): [[p.text[:40], p.start_time, p.end_time,
-                                    len(p.words or ()), len(p.nbest or ())] for p in ps]
-                        for sid, ps in phrases.items()}}
+            raise AssertionError(f"{name}: final on the card {text!r} != CPU decoder {want!r}")
+    return {"phase": name, "fusion": fusion, **run["out"], "finals_checked": len(decoded),
+            "finals_calls": finals_calls}
+
+
+def phase_serve_beam() -> dict:
+    """The serve cell with the LM-rescoring device decoder, interim device
+    beams and word timestamps."""
+    from tone_tpu_torch.decoding.lm import ArpaLM
+
+    return _device_serve_phase("serve_beam", ArpaLM(beam_lm_tables()), fusion=False,
+                               word_timestamps=True, interim_device_beam=True)
+
+
+def phase_serve_fused() -> dict:
+    """The serve cell with the fused decoder (the LM inside the device
+    search); warmup runs its finals ladder."""
+    from tone_tpu_torch.decoding.lm import ArpaLM
+
+    return _device_serve_phase("serve_fused", ArpaLM(beam_lm_tables()), fusion=True,
+                               word_timestamps=False, interim_device_beam=False)
+
+
+def phase_serve_host_beam() -> dict:
+    """The serve cell with the host beam decoder (the native C++ search at
+    width 200, built by this run): finals per phrase on the pool, carried
+    host-beam interims, request hotwords on one stream (a host beam of the
+    stream's own).  Every final must equal a second decode of its logprobs
+    by the decoder that made it."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder
+    from tone_tpu_torch.decoding.estimate import write_arpa
+    from tone_tpu_torch.decoding.native import beamsearch
+    from tone_tpu_torch.runtime.engine import MultiStreamEngine
+
+    t0 = time.perf_counter()
+    if not beamsearch.build_native():
+        raise AssertionError("g++ failed to build the native beam decoder")
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        write_arpa(beam_lm_tables(), Path(tmp) / "lm.arpa")
+        decoder = BeamSearchCTCDecoder.from_local(Path(tmp) / "lm.arpa")
+    if not decoder._use_native or decoder._native_lm is None:
+        raise AssertionError("the host beam decoder is not on its native library")
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    engine = MultiStreamEngine(variables, cfg, n_slots=SERVE_SLOTS, device="cuda",
+                               decoder=decoder, interim_beam=True)
+    decoded = []
+    real_decode = engine._decode
+
+    def recorded(phrase, dec=None, nbest=0):
+        t0 = time.perf_counter()
+        out = real_decode(phrase, dec, nbest)
+        decoded.append((phrase, dec or engine.decoder, nbest, out.text,
+                        (time.perf_counter() - t0) * 1e3))
+        return out
+
+    engine._decode = recorded
+
+    def setup(engine, sids):
+        engine.set_stream_hotwords(sids[1], BEAM_HOTWORDS, 5.0)
+        over = engine._streams[sids[1]].decoder
+        if not isinstance(over, BeamSearchCTCDecoder) or not over._use_native:
+            raise AssertionError(f"request hotwords gave {over!r}, not a native host beam")
+
+    try:
+        run = _serve_cell(engine, setup)
+    finally:
+        engine.shutdown()
+    if not engine.interim_beam or run["out"]["interim_events"] == 0:
+        raise AssertionError("no carried host-beam interims")
+    finals = [p.text for sid in run["sids"] for p in run["phrases"][sid]]
+    if sorted(finals) != sorted(d[3] for d in decoded):
+        raise AssertionError(f"finals {finals} are not the pool's decodes")
+    alone_ms = []
+    for phrase, dec, _, text, _ in decoded:
+        t0 = time.perf_counter()
+        again = dec.forward(np.ascontiguousarray(phrase.logprobs))
+        alone_ms.append((time.perf_counter() - t0) * 1e3)
+        if again != text:
+            raise AssertionError(f"host beam final {text!r} != a second decode {again!r}")
+    return {"phase": "serve_host_beam", "beam_width": decoder.beam_width,
+            "native": decoder._use_native, "native_build_s": build_s, **run["out"],
+            "finals_checked": len(decoded),
+            "final_ms": [[len(d[0].logprobs), d[4], ms] for d, ms in zip(decoded, alone_ms)],
+            "final_ms_fields": ["frames", "ms on the pool in the run", "ms alone"]}
+
+
+def run_phase(fn, *args) -> dict:
+    """Run one phase, add its seconds as ``phase_s`` and print its line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    parser.add_argument("--profile-check", action="store_true",
+                        help="beam_decode: also read each profile through key_averages() "
+                             "and profile each non-fused call twice")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -805,19 +1032,16 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
-    emit(phase_build())
-    kernels = phase_kernels()
-    emit(kernels)
-    step = phase_step()
-    emit(step)
-    serve = phase_serve()
-    emit(serve)
-    fused = phase_fused_kernels()
-    emit(fused)
-    fused_step = phase_fused_step()
-    emit(fused_step)
-    emit(phase_beam_decode())
-    emit(phase_serve_beam())
+    run_phase(phase_build)
+    kernels = run_phase(phase_kernels)
+    run_phase(phase_step)
+    serve = run_phase(phase_serve)
+    fused = run_phase(phase_fused_kernels)
+    fused_step = run_phase(phase_fused_step)
+    run_phase(phase_beam_decode, args.profile_check)
+    run_phase(phase_serve_beam)
+    run_phase(phase_serve_fused)
+    run_phase(phase_serve_host_beam)
 
     # The serve phase is the main path: its full-rate layers give M = 10 * slots.
     main_m = SERVE_SLOTS * 10

@@ -234,15 +234,26 @@ def test_suspend_resume_carries_nbest_and_hotwords(tiny):
 
 
 def test_greedy_engine_refuses_hotwords(tiny):
+    """A greedy engine serves request hotwords with a host beam decoder of
+    the stream's own (as the JAX engine does), also after a resume; an
+    empty list clears it."""
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder
+
     _, tc, _, tv, _ = tiny
-    eng = MultiStreamEngine(tv, tc, n_slots=1, device="cpu")
+    eng = MultiStreamEngine(tv, tc, n_slots=2, device="cpu")
     try:
         sid = eng.open_stream()
-        with pytest.raises(NotImplementedError, match="A11"):
-            eng.set_stream_hotwords(sid, ["да"])
+        eng.set_stream_hotwords(sid, ["да"])
+        over = eng._streams[sid].decoder
+        assert isinstance(over, BeamSearchCTCDecoder) and over._hotwords is not None
         eng.set_stream_hotwords(sid, [])  # clearing is fine
-        with pytest.raises(NotImplementedError, match="A11"):
-            eng.resume_stream({"hotwords": (("да",), 1.0)})
+        assert eng._streams[sid].decoder is None
+        eng.set_stream_hotwords(sid, ["да"], 2.0)
+        eng.feed(sid, np.zeros(N, np.int16))
+        eng.tick()
+        sid = eng.resume_stream(eng.suspend_stream(sid))
+        assert isinstance(eng._streams[sid].decoder, BeamSearchCTCDecoder)
+        assert eng._streams[sid].hotwords == (("да",), 2.0)
     finally:
         eng.shutdown()
 
@@ -300,9 +311,10 @@ def test_pipeline_option_checks(tiny):
 
 def test_cli_serve_builds_a_device_beam_engine(tmp_path):
     """``serve --decoder device-beam --lm ... --device cpu`` builds the
-    engine with every option; the unported flags raise naming their
-    ROADMAP items."""
-    from tone_tpu_torch.__main__ import build_engine, build_parser, main
+    engine with every option, and so do ``--fused-lm``, ``--decoder beam``
+    and ``--interim-beam``."""
+    from tone_tpu_torch.__main__ import build_engine, build_parser
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder
     from tone_tpu_torch.decoding.estimate import estimate_ngram_lm as est
     from tone_tpu_torch.decoding.estimate import write_arpa
 
@@ -322,10 +334,22 @@ def test_cli_serve_builds_a_device_beam_engine(tmp_path):
         assert engine._hotword_warmup_buckets == ()
     finally:
         engine.shutdown()
-    for flags, item in ((["--decoder", "device-beam", "--lm", "x.arpa", "--fused-lm"], "A10"),
-                        (["--decoder", "beam"], "A11"), (["--interim-beam"], "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["serve", "--device", "cpu", *flags])
+    lm = str(tmp_path / "lm.arpa")
+    for flags, check in (
+            (["--decoder", "device-beam", "--lm", lm, "--fused-lm"],
+             lambda e: e.decoder.fusion and e.device_finals),
+            (["--decoder", "beam"],
+             lambda e: isinstance(e.decoder, BeamSearchCTCDecoder) and not e.interim_beam),
+            (["--decoder", "beam", "--lm", lm, "--interim-beam"],
+             lambda e: e.interim_beam and e.decoder._native_lm is not None),
+            (["--interim-beam"],   # greedy has no carried search: greedy interims
+             lambda e: not e.interim_beam and e.interim_transcripts)):
+        engine = build_engine(build_parser().parse_args(
+            ["serve", "--device", "cpu", "--slots", "1", *flags]))
+        try:
+            assert check(engine), flags
+        finally:
+            engine.shutdown()
 
 
 def test_websocket_transcripts_carry_words_and_nbest(tiny):

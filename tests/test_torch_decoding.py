@@ -196,13 +196,24 @@ def test_from_local_reads_every_lm_format(lm_files):
 
 
 def test_fused_lm_and_host_beam_raise(lm_files):
+    """The fused search and the host beam are ported: ``fusion=True`` and
+    ``build_decoder("beam")`` build them.  The Hugging Face download is not
+    (no network): it raises, naming its ROADMAP item."""
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder
+    from tone_tpu_torch.decoding.device_lm import DeviceLM, DeviceProbingLM
+
     _, files = lm_files
-    with pytest.raises(NotImplementedError, match="A10"):
-        DeviceBeamSearchCTCDecoder(TLM.load_lm(files["arpa"]), fusion=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        DeviceBeamSearchCTCDecoder.from_local(files["arpa"], fusion=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_decoder("beam", lm=files["arpa"])
+    fused = DeviceBeamSearchCTCDecoder(TLM.load_lm(files["arpa"]), fusion=True, device="cpu")
+    assert fused.fusion and isinstance(fused._lm, DeviceLM)
+    for fmt, kind in (("arpa", DeviceLM), ("trie", DeviceLM), ("probing", DeviceProbingLM)):
+        dec = DeviceBeamSearchCTCDecoder.from_local(files[fmt], fusion=True, device="cpu")
+        assert dec.fusion and type(dec._lm) is kind
+    host = build_decoder("beam", lm=files["arpa"])
+    assert isinstance(host, BeamSearchCTCDecoder) and host._lm is not None
+    phrase = _phrases(5, n=1)[0]
+    assert fused.forward(phrase) == dec.forward(phrase)
+    with pytest.raises(NotImplementedError, match="A14"):
+        BeamSearchCTCDecoder.from_hugging_face()
 
 
 @pytest.mark.parametrize("kwargs, error", [

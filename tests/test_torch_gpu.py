@@ -322,6 +322,14 @@ def _beam_logprobs(seed, b, t, scale=2.5, blank=4.0):
     return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
 
 
+def _assert_nbest_close(got, want):
+    """Same texts in the same order on every row; scores within 1e-4 (the
+    hotword bias is a float sum that may round differently on the card)."""
+    assert [[h[0] for h in r] for r in got] == [[h[0] for h in r] for r in want]
+    for g, w in zip(got, want):
+        assert np.allclose([h[1] for h in g], [h[1] for h in w], atol=1e-4)
+
+
 def _assert_beam_states_equal(card, cpu):
     for f in ("h1", "h2", "lc", "tokens", "lens"):
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
@@ -351,7 +359,7 @@ def test_beam_advance_on_card_matches_cpu(cuda, width, hot):
         cpu = BD.beam_advance(BD.init_beam_state(8, width, 128), lp, lengths)
     assert card.p_b.device.type == cuda.type
     _assert_beam_states_equal(card, cpu)
-    assert BD.beam_nbest(card, width) == BD.beam_nbest(cpu, width) or hot
+    _assert_nbest_close(BD.beam_nbest(card, width), BD.beam_nbest(cpu, width))
 
 
 def test_beam_tie_order_on_card(cuda):
@@ -410,7 +418,147 @@ def test_device_beam_decoder_on_card_matches_cpu(cuda, variant):
     cpu = DeviceBeamSearchCTCDecoder(lm, beam_width=16, device="cpu")
     got, want = card.forward_batch_nbest(phrases, 4, rows), cpu.forward_batch_nbest(
         phrases, 4, rows)
-    assert [[h[0] for h in r] for r in got] == [[h[0] for h in r] for r in want]
-    for g, w in zip(got, want):
-        assert np.allclose([h[1] for h in g], [h[1] for h in w], atol=1e-4)
+    _assert_nbest_close(got, want)
     assert card._cuda_stream is not None   # the search ran on its own stream
+
+
+# ---------------------------------------------------------------------------
+# The fused-LM device search on the card against the CPU: the same torch ops,
+# so the hashes, the KenLM chain hash and the LM state agree bit for bit, the
+# log probabilities within float rounding.
+# ---------------------------------------------------------------------------
+
+
+def _fused_lm(tmp_path, probing: bool, seed: int = 0):
+    """An order-3 LM over a seeded corpus, as a DeviceLM (ARPA) or a
+    DeviceProbingLM (the same LM as a KenLM probing binary)."""
+    from tone_tpu_torch.decoding.device_lm import DeviceLM, DeviceProbingLM
+    from tone_tpu_torch.decoding.estimate import estimate_ngram_lm
+    from tone_tpu_torch.decoding.kenlm_binary import write_kenlm_binary
+
+    rng = np.random.default_rng(seed)
+    letters = list("абвгдежзиклмнопрстуя")
+    words = ["".join(rng.choice(letters, rng.integers(1, 5))) for _ in range(60)]
+    tables = estimate_ngram_lm(
+        [[words[i] for i in rng.integers(0, 60, rng.integers(1, 8))] for _ in range(400)], 3)
+    if not probing:
+        return DeviceLM.from_ngrams(tables)
+    write_kenlm_binary(tables, tmp_path / "lm.bin")
+    return DeviceProbingLM.from_file(tmp_path / "lm.bin", cache=False)
+
+
+def _fused_logprobs(seed, b, t):
+    """Blank-heavy frames with frequent spaces, so that words complete."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0.0, 2.5, (b, t, BEAM_V))
+    logits[..., BEAM_V - 1] += 3.0
+    logits[..., BEAM_V - 2] += 2.5 * rng.random((b, t))
+    x = logits - logits.max(-1, keepdims=True)
+    return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+
+
+def _assert_fused_states_equal(card, cpu):
+    _assert_beam_states_equal(card.base, cpu.base)
+    for f in ("ctx", "node", "wid", "hw_node"):
+        if getattr(cpu, f) is not None:
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    for f in ("lm_sc", "hw_tent", "hw_bias"):
+        if getattr(cpu, f) is not None:
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            fin = torch.isfinite(b)
+            assert torch.equal(torch.isfinite(a), fin), f
+            assert (a[fin] - b[fin]).abs().max().item() <= 1e-5, f
+
+
+def test_fused_hash_products_on_card(cuda):
+    """The 64-bit KenLM chain hash in two u32 limbs and the LM table
+    bucket products: bit-equal on the card, the CPU and Python ints."""
+    from tone_tpu_torch.decoding.kenlm_binary import combine_word_hash
+
+    rng = np.random.default_rng(1)
+    n = 1 << 14
+    hi = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.int64)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.int64)
+    wid = rng.integers(-1, 2**31 - 1, n)
+    hi[:3], lo[:3], wid[:3] = [0, 2**32 - 1, 2**31], [0, 2**32 - 1, 1], [-1, 2**31 - 2, 0]
+    args = [torch.from_numpy(x) for x in (hi, lo, wid)]
+    card = BD._combine64(*(a.to(cuda) for a in args))
+    cpu = BD._combine64(*args)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    for i in list(range(3)) + list(rng.integers(0, n, 200)):
+        want = combine_word_hash((int(hi[i]) << 32) | int(lo[i]), int(wid[i]))
+        assert (int(cpu[0][i]) << 32) | int(cpu[1][i]) == want
+    h = torch.from_numpy(hi)
+    assert torch.equal(BD._mul_u32(h.to(cuda), BD._FIB).cpu(), BD._mul_u32(h, BD._FIB))
+    assert torch.equal(BD._as_i32(h.to(cuda)).cpu(), BD._as_i32(h))
+
+
+@pytest.mark.parametrize("probing", [False, True], ids=["arpa", "probing"])
+def test_lm_keys_above_2_31_on_card(cuda, tmp_path, probing):
+    """Every gram of the LM is found on the card, whose int32 tables hold
+    keys >= 2**31 as negative numbers; scores equal the CPU's bit for bit."""
+    lm = _fused_lm(tmp_path, probing)
+    keys1 = lm.keys1[lm.keys1 != 0xFFFFFFFF].astype(np.int64)
+    keys2 = lm.keys2[lm.keys1 != 0xFFFFFFFF].astype(np.int64)
+    assert (keys1 >= 2**31).any() and (keys2 >= 2**31).any()
+    found, prob, bo = BD._lm_lookup(lm.arrays(cuda), torch.from_numpy(keys1).to(cuda),
+                                    torch.from_numpy(keys2).to(cuda))
+    assert bool(found.all())
+    c_found, c_prob, c_bo = BD._lm_lookup(lm.arrays("cpu"), torch.from_numpy(keys1),
+                                          torch.from_numpy(keys2))
+    assert torch.equal(prob.cpu(), c_prob) and torch.equal(bo.cpu(), c_bo)
+    rng = np.random.default_rng(2)
+    n_ids = len(lm.uni_prob) if probing else lm.n_words
+    ctx = torch.from_numpy(rng.integers(-1, n_ids, (64, 32, 2)))
+    wid = torch.from_numpy(rng.integers(0, n_ids, (64, 32)))
+    assert torch.equal(BD._lm_score(lm.arrays(cuda), ctx.to(cuda), wid.to(cuda)).cpu(),
+                       BD._lm_score(lm.arrays("cpu"), ctx, wid))
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("probing", [False, True], ids=["arpa", "probing"])
+def test_fused_beam_advance_on_card_matches_cpu(cuda, tmp_path, probing, hot):
+    lm = _fused_lm(tmp_path, probing)
+    lp = _fused_logprobs(7 + probing, 8, 96)
+    lengths = np.array([96, 90, 64, 50, 33, 12, 1, 0])
+    tables = BD.make_hotword_tables(["аб", "ви гд"], 4.0) if hot else None
+    states = []
+    for dev in (cuda, torch.device("cpu")):
+        st = BD.init_fused_beam_state(8, 16, lm, 128, hotwords=tables, device=dev)
+        st = BD.fused_beam_advance(st, lp[:, :40], lm.arrays(dev), np.minimum(lengths, 40),
+                                   hotwords=tables)
+        st = BD.fused_beam_advance(st, lp[:, 40:], lm.arrays(dev),
+                                   np.clip(lengths - 40, 0, None), hotwords=tables)
+        states.append(st)
+    card, cpu = states
+    assert card.lm_sc.device.type == cuda.type
+    _assert_fused_states_equal(card, cpu)
+    assert (cpu.ctx[..., -1] != lm.bos_id).any()    # words were completed
+    _assert_nbest_close(BD.fused_beam_nbest(card, lm, 4), BD.fused_beam_nbest(cpu, lm, 4))
+
+
+def test_fused_tie_order_on_card(cuda, tmp_path):
+    """Uniform frames: every candidate ties, so only the stable order keeps
+    card and CPU on the same beams, LM state included."""
+    lm = _fused_lm(tmp_path, False)
+    lp = np.full((4, 12, BEAM_V), -np.log(BEAM_V), np.float32)
+    card = BD.fused_beam_advance(BD.init_fused_beam_state(4, 16, lm, 32, device=cuda), lp,
+                                 lm.arrays(cuda))
+    cpu = BD.fused_beam_advance(BD.init_fused_beam_state(4, 16, lm, 32), lp, lm.arrays("cpu"))
+    _assert_fused_states_equal(card, cpu)
+
+
+@pytest.mark.parametrize("probing", [False, True], ids=["arpa", "probing"])
+def test_fused_decoder_on_card_matches_cpu(cuda, tmp_path, probing):
+    from tone_tpu_torch.decoder import DeviceBeamSearchCTCDecoder
+
+    lm = _fused_lm(tmp_path, probing)
+    phrases = [_fused_logprobs(20 + i, 1, t)[0] for i, t in enumerate([40, 64, 100, 7])]
+    rows = [BD.make_hotword_tables(["аб"]), None, None, BD.make_hotword_tables(["ви", "гд"])]
+    card = DeviceBeamSearchCTCDecoder(lm, fusion=True, beam_width=16, device=cuda)
+    cpu = DeviceBeamSearchCTCDecoder(lm, fusion=True, beam_width=16, device="cpu")
+    for hot in (None, rows):
+        got, want = card.forward_batch_nbest(phrases, 4, hot), cpu.forward_batch_nbest(phrases, 4, hot)
+        _assert_nbest_close(got, want)
+    assert card._cuda_stream is not None

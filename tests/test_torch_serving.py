@@ -209,15 +209,27 @@ def test_engine_suspend_resume_continues_the_stream(tiny):
 
 
 @pytest.mark.parametrize("option, error, match", [
-    ({"interim_beam": True}, NotImplementedError, "ROADMAP queue A11"),
-    ({"decoder": object()}, NotImplementedError, "ROADMAP queue A11"),
+    ({"interim_beam": True}, None, None),
+    ({"decoder": object()}, TypeError, "no forward"),
     ({"nbest": 2}, ValueError, "needs a beam decoder"),
     ({"nbest": 1}, ValueError, "ambiguous"),
     ({"nbest": 33}, ValueError, "0..32")])
 def test_engine_options_not_ported_raise(tiny, option, error, match):
-    """What the port's engine still refuses: the host beam (ROADMAP A11),
-    and the JAX engine's n-best checks on a greedy decoder."""
+    """What the port's engine refuses: a decoder with no ``forward``, and
+    the JAX engine's n-best checks on a greedy decoder.  ``interim_beam``
+    is ported; a greedy engine has no carried search, so it reports the
+    greedy interims, as the JAX engine does."""
     _, tc, _, tv = tiny
+    if error is None:
+        eng = MultiStreamEngine(tv, tc, n_slots=1, device="cpu", **option)
+        jeng = JaxEngine(tiny[2], tiny[0], n_slots=1, **option)
+        try:
+            assert (eng.interim_beam, eng.interim_transcripts) == (
+                jeng.interim_beam, jeng.interim_transcripts) == (False, True)
+        finally:
+            eng.shutdown()
+            jeng.shutdown()
+        return
     with pytest.raises(error, match=match):
         MultiStreamEngine(tv, tc, n_slots=1, device="cpu", **option)
 
@@ -310,12 +322,13 @@ def test_websocket_round_trip(tiny):
             engine.shutdown()
 
     events = asyncio.run(main())
-    nbest_err, hotword_err, cleared = events[:3]
+    nbest_err, hotword_ok, cleared = events[:3]
     assert cleared == {"event": "config", "hotwords": 0, "nbest": 0}
     assert nbest_err == {"event": "error", "error": "bad config: the configured decoder has "
                          "no n-best support (greedy decodes a single hypothesis; use a "
                          "beam decoder)"}
-    assert hotword_err["event"] == "error" and hotword_err["error"].startswith("bad config:")
+    # a greedy engine biases with a host beam decoder of the stream's own
+    assert hotword_ok == {"event": "config", "hotwords": 1}
     transcripts = [e for e in events[3:] if e["event"] == "transcript"]
     assert transcripts and all(e["start_time"] <= e["end_time"] for e in transcripts)
 
@@ -411,19 +424,26 @@ def test_greedy_decoder_matches_jax(seed):
     assert GreedyCTCDecoder().forward(logprobs) == JaxGreedy().forward(logprobs)
 
 
-def test_beam_decoders_are_not_ported_yet():
-    """The host beam (A11) and the fused-LM search (A10) still raise; the
-    device beam decoder is built, on the device asked for."""
-    from tone_tpu_torch.decoder import DecoderType, DeviceBeamSearchCTCDecoder, build_decoder
+def test_beam_decoders_are_not_ported_yet(tmp_path):
+    """Every decoder of the JAX factory is built: the host beam, the fused-LM
+    device search and the device beam, on the device asked for."""
+    from tone_tpu_torch.decoder import (
+        BeamSearchCTCDecoder,
+        DecoderType,
+        DeviceBeamSearchCTCDecoder,
+        build_decoder,
+    )
+    from tone_tpu_torch.decoding.estimate import estimate_ngram_lm, write_arpa
 
     blanks = np.full((3, 35), -10.0, np.float32)
     blanks[:, 34] = 0.0
     assert build_decoder("greedy").forward(blanks) == ""
     for kind in (DecoderType.BEAM_SEARCH, "beam"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            build_decoder(kind)
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_decoder("device-beam", lm="lm.arpa", fused_lm=True, device="cpu")
+        host = build_decoder(kind)
+        assert isinstance(host, BeamSearchCTCDecoder) and host.forward(blanks) == ""
+    write_arpa(estimate_ngram_lm([["да", "нет"], ["нет"]], order=2), tmp_path / "lm.arpa")
+    fused = build_decoder("device-beam", lm=tmp_path / "lm.arpa", fused_lm=True, device="cpu")
+    assert fused.fusion and fused.forward(blanks) == ""
     decoder = build_decoder("device-beam", beam_width=4, device="cpu")
     assert isinstance(decoder, DeviceBeamSearchCTCDecoder)
     assert (decoder.beam_width, decoder.device.type) == (4, "cpu")

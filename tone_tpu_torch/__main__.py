@@ -3,7 +3,8 @@
 port's engine supports).
 
   python -m tone_tpu_torch serve [--port 8080] [--slots 256] [...]
-  python -m tone_tpu_torch serve --decoder device-beam --lm lm.arpa [...]
+  python -m tone_tpu_torch serve --decoder device-beam --lm lm.arpa [--fused-lm] [...]
+  python -m tone_tpu_torch serve --decoder beam [--lm lm.arpa] [--interim-beam] [...]
 
 With no ``--checkpoint`` the model takes random weights from
 ``torch.Generator().manual_seed(0)``; the JAX CLI draws its random weights
@@ -30,8 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--interim", action="store_true",
                        help="stream in-progress phrase partials")
     p_srv.add_argument("--interim-beam", action="store_true",
-                       help="partials from a carried host beam search "
-                            "(not ported yet: ROADMAP A11)")
+                       help="partials from a carried host beam search per "
+                            "stream (needs --decoder beam)")
     p_srv.add_argument("--interim-device-beam", action="store_true",
                        help="partials from a carried beam search on the device")
     p_srv.add_argument("--interim-beam-width", type=int, default=8)
@@ -65,21 +66,24 @@ def build_parser() -> argparse.ArgumentParser:
                             "weights from seed 0")
     p_srv.add_argument("--decoder", choices=["greedy", "beam", "device-beam"],
                        default="greedy",
-                       help="device-beam = beam search on the device with n-best "
-                            "LM rescoring on the host (beam: not ported yet, "
-                            "ROADMAP A11)")
+                       help="beam = host CTC prefix beam search with LM shallow "
+                            "fusion (width 200); device-beam = beam search on the "
+                            "device, the LM fused (--fused-lm) or rescoring the "
+                            "n-best list on the host")
     p_srv.add_argument("--lm", type=Path, default=None,
                        help="LM for beam search (ARPA text or KenLM binary)")
     p_srv.add_argument("--fused-lm", action="store_true",
-                       help="fuse the LM into the device search (not ported "
-                            "yet: ROADMAP A10)")
+                       help="with --decoder device-beam: fuse the LM into the "
+                            "device search (full shallow fusion) instead of "
+                            "n-best rescoring")
     p_srv.add_argument("--hotwords", type=str, default=None,
-                       help="with --decoder device-beam: comma-separated "
+                       help="with --decoder beam or device-beam: comma-separated "
                             "words/phrases (or @file, one per line) to bias "
                             "the search toward")
     p_srv.add_argument("--hotword-weight", type=float, default=10.0)
     p_srv.add_argument("--beam-width", type=int, default=None,
-                       help="beam width override (default 32)")
+                       help="beam width override (default 200 for beam, 32 for "
+                            "device-beam)")
     p_srv.add_argument("--device", default=None,
                        help="torch device (default cuda; 'cpu' to run on the CPU)")
     return parser
@@ -99,10 +103,6 @@ def build_engine(args):
         raise NotImplementedError(
             "--checkpoint: loading checkpoints is not ported to "
             "tone_tpu_torch yet (ROADMAP queue A14)")
-    if args.interim_beam:
-        raise NotImplementedError(
-            "--interim-beam: the carried host beam search is not ported to "
-            "tone_tpu_torch yet (ROADMAP queue A11)")
     decoder = build_decoder(args.decoder, lm=args.lm, fused_lm=args.fused_lm,
                             beam_width=args.beam_width,
                             hotwords=parse_hotwords(args.hotwords),
@@ -112,7 +112,7 @@ def build_engine(args):
     variables = init_model_params(torch.Generator().manual_seed(0), config)
     return MultiStreamEngine(
         variables, config, n_slots=args.slots, decoder=decoder, device=args.device,
-        interim_transcripts=args.interim,
+        interim_transcripts=args.interim, interim_beam=args.interim_beam,
         interim_device_beam=args.interim_device_beam,
         interim_beam_width=args.interim_beam_width,
         interim_beam_max_len=args.interim_beam_max_len,

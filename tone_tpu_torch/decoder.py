@@ -1,12 +1,16 @@
-"""CTC decoders of the port (port of ``tone_tpu/decoder.py``): greedy, and
-the device beam search with host n-best LM rescoring and hotword biasing.
+"""CTC decoders of the port (port of ``tone_tpu/decoder.py``): greedy, the
+host beam search, and the device beam search.
+
+``BeamSearchCTCDecoder`` is the reference's pyctcdecode-style decoder: a
+CTC prefix beam search of width 200 with word n-gram LM shallow fusion and
+hotwords, on the host (the C++ decoder of ``decoding/native``, or the Python
+search of ``decoding/beam.py`` where no C++ toolchain is available).
 
 ``DeviceBeamSearchCTCDecoder`` runs the batched prefix beam search of
 ``ops/beam_decode.py`` on its device (the card unless the caller asks for
-the CPU) and applies the word LM as an n-best rescoring pass on the host.
-Still to come (asking for them raises ``NotImplementedError``): the fused-LM
-device search (``fusion=True``, ROADMAP A10) and the host beam decoder
-(``"beam"``, ROADMAP A11).
+the CPU): with ``fusion=True`` the LM is fused into the device search
+(``decoding/device_lm.py``); otherwise the LM rescores the n-best list on
+the host.
 """
 
 from __future__ import annotations
@@ -28,17 +32,12 @@ if TYPE_CHECKING:
 
     from tone_tpu_torch.decoding.lm import LanguageModel
 
-__all__ = ["LABELS", "DecoderType", "GreedyCTCDecoder", "DeviceBeamSearchCTCDecoder",
-           "build_decoder", "parse_hotwords"]
+__all__ = ["LABELS", "DecoderType", "GreedyCTCDecoder", "BeamSearchCTCDecoder",
+           "DeviceBeamSearchCTCDecoder", "build_decoder", "parse_hotwords"]
 
 # The reference's shallow-fusion weights (tone/decoder.py:108, :133).
 ALPHA = 0.4
 BETA = 0.9
-
-_FUSED_LM = ("the fused-LM device search (fusion=True / --fused-lm) is not ported "
-             "to tone_tpu_torch yet (ROADMAP queue A10)")
-_HOST_BEAM = ("the host beam-search decoder (--decoder beam) is not ported to "
-              "tone_tpu_torch yet (ROADMAP queue A11)")
 
 
 class DecoderType(Enum):
@@ -71,13 +70,188 @@ class GreedyCTCDecoder:
         return "".join(LABELS[t] for t in collapsed if t < len(LABELS)).strip()
 
 
-class DeviceBeamSearchCTCDecoder:
-    """Beam-search decoding with the search on the device and the LM applied
-    as an n-best rescoring pass on the host
-    (``tone_tpu/decoder.py:247-492`` without fusion).
+def _native_lm_path(model_path: Path) -> Path:
+    """LM path to hand the native C++ scorer.
 
-    The search is batched (``ops/beam_decode.py``) and host LM work is a
-    handful of lookups per *hypothesis* instead of per frame
+    The C++ scorer reads ARPA text and KenLM probing binaries; KenLM *trie*
+    binaries are converted once to an equivalent probing binary in the
+    temp dir (keyed by source identity) and the conversion is reused.
+    """
+    from tone_tpu_torch.decoding.kenlm_binary import kenlm_model_type
+
+    if kenlm_model_type(model_path) not in (2, 3, 4, 5):
+        return model_path
+    import hashlib
+    import tempfile
+
+    stat = model_path.stat()
+    key = hashlib.sha256(
+        f"{model_path.resolve()}:{stat.st_size}:{stat.st_mtime_ns}".encode()
+    ).hexdigest()[:16]
+    cached = Path(tempfile.gettempdir()) / f"tone_tpu_torch_lm_{key}.bin"
+    if not cached.exists():
+        import os
+
+        from tone_tpu_torch.decoding.kenlm_binary import write_kenlm_binary
+        from tone_tpu_torch.decoding.kenlm_trie import KenLMTrie, trie_to_ngrams
+
+        # Per-process temp name + atomic rename: concurrent converters
+        # each publish a complete file (last writer wins, same bytes).
+        tmp = cached.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            write_kenlm_binary(trie_to_ngrams(KenLMTrie(model_path)), tmp)
+            tmp.replace(cached)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return cached
+
+
+class BeamSearchCTCDecoder:
+    """Beam-search CTC decoding on the host with optional n-gram LM shallow
+    fusion (``tone_tpu/decoder.py:100-244``; the Hugging Face download is
+    not ported: there is no network here).
+
+    Defaults mirror the reference: alpha=0.4, beta=0.9, beam width 200
+    (tone/decoder.py:108, :133).
+    """
+
+    ALPHA = ALPHA
+    BETA = BETA
+    BEAM_WIDTH = 200
+
+    def __init__(self, lm: "LanguageModel | None" = None, *,
+                 alpha: float = ALPHA, beta: float = BETA,
+                 beam_width: int = BEAM_WIDTH, native_lm=None,
+                 hotwords=None, hotword_weight: float = 10.0) -> None:
+        self._lm = lm
+        self._native_lm = native_lm
+        self.alpha = alpha
+        self.beta = beta
+        self.beam_width = beam_width
+        # The C++ decoder when it builds (it equals the Python search:
+        # tests/test_torch_host_beam.py).  A Python LanguageModel without a
+        # native twin, or a pre-built HotwordScorer whose phrases the native
+        # side can't take, keeps the Python search.
+        from tone_tpu_torch.decoding.native.beamsearch import native_available
+
+        native_ok = native_available() and (lm is None or native_lm is not None)
+        self._hotwords = None
+        self._native_hotwords = None
+        if hotwords:
+            from tone_tpu_torch.decoding.hotwords import HotwordScorer
+
+            if isinstance(hotwords, HotwordScorer):
+                # A pre-built scorer keeps its phrase list and weight, so
+                # the native twin is still constructible from it.
+                self._hotwords = hotwords
+                phrases, hotword_weight = hotwords.phrases, hotwords.weight
+            else:
+                if isinstance(hotwords, str):
+                    raise TypeError(
+                        "hotwords must be a list of phrases, not a string")
+                phrases = [str(h) for h in hotwords]
+                bad = {c for h in phrases for c in h.lower() if c not in LABELS}
+                if bad:
+                    raise ValueError(
+                        f"hotword characters outside the label set: {sorted(bad)}")
+                self._hotwords = HotwordScorer(phrases, hotword_weight)
+            if native_ok:
+                from tone_tpu_torch.decoding.native.beamsearch import NativeHotwords
+
+                try:
+                    self._native_hotwords = NativeHotwords(
+                        LABELS, phrases, hotword_weight)
+                except ValueError:
+                    # pre-built scorer with out-of-label-set phrases (those
+                    # can never match, but stay on the Python path)
+                    native_ok = False
+        self._use_native = native_ok
+
+    @classmethod
+    def from_local(cls, model_path: str | Path, *, hotwords=None,
+                   hotword_weight: float = 10.0) -> "BeamSearchCTCDecoder":
+        """Initialize from a local LM file: ARPA text (optionally .gz) or a
+        KenLM binary — the reference's published ``kenlm.bin`` artifact
+        (tone/decoder.py:84-95) loads directly."""
+        from tone_tpu_torch.decoding.lm import load_lm
+        from tone_tpu_torch.decoding.native.beamsearch import NativeLM, native_available
+
+        model_path = Path(model_path)
+        native_lm = None
+        if native_available() and model_path.suffix != ".gz":
+            try:
+                native_lm = NativeLM(_native_lm_path(model_path))
+            except (RuntimeError, ValueError, OSError):
+                # A conversion or scorer failure of any kind degrades to
+                # the Python LM instead of failing decoder construction.
+                native_lm = None
+        return cls(load_lm(model_path), native_lm=native_lm,
+                   hotwords=hotwords, hotword_weight=hotword_weight)
+
+    @classmethod
+    def from_hugging_face(cls) -> "BeamSearchCTCDecoder":
+        """Not ported: the LM download waits for the interop slice."""
+        raise NotImplementedError(
+            "BeamSearchCTCDecoder.from_hugging_face (the kenlm.bin download) is not "
+            "ported to tone_tpu_torch yet (ROADMAP queue A14); use from_local")
+
+    def forward(self, logprobs: "npt.NDArray[np.float32]") -> str:
+        """Decode (L, vocab+1) logprobs to text via prefix beam search."""
+        _validate_logprobs(logprobs)
+        if self._use_native:
+            from tone_tpu_torch.decoding.native.beamsearch import ctc_beam_search_native
+
+            return ctc_beam_search_native(
+                logprobs, LABELS, self._native_lm,
+                alpha=self.alpha, beta=self.beta, beam_width=self.beam_width,
+                hotwords=self._native_hotwords,
+            )
+        from tone_tpu_torch.decoding.beam import ctc_beam_search
+
+        return ctc_beam_search(
+            logprobs.astype(np.float64), LABELS, self._lm,
+            alpha=self.alpha, beta=self.beta, beam_width=self.beam_width,
+            hotwords=self._hotwords,
+        )
+
+    def nbest(self, logprobs: "npt.NDArray[np.float32]",
+              n: int = 8) -> list[tuple[str, float]]:
+        """Up to ``n`` alternative transcripts with scores, best first
+        (pyctcdecode's ``decode_beams``).  Scores are natural-log acoustic
+        + LM (+hotword) totals."""
+        _validate_logprobs(logprobs)
+        search = self.streaming()
+        search.advance(np.asarray(logprobs,
+                                  np.float32 if self._use_native else np.float64))
+        return search.nbest(n)
+
+    def streaming(self):
+        """A carried-state decoder for incremental transcription: feed
+        logprob frames as they arrive with ``advance(logprobs)``, read the
+        current best with ``result()``, restart with ``reset()``.  Prefix
+        beam search is frame-sequential, so advancing chunk by chunk gives
+        exactly ``forward()`` over the concatenated frames — the serving
+        engine's LM-quality interim transcripts (``interim_beam``)."""
+        if self._use_native:
+            from tone_tpu_torch.decoding.native.beamsearch import NativeStreamingBeam
+
+            return NativeStreamingBeam(
+                LABELS, self._native_lm, alpha=self.alpha, beta=self.beta,
+                beam_width=self.beam_width, hotwords=self._native_hotwords)
+        from tone_tpu_torch.decoding.beam import StreamingBeamSearch
+
+        return StreamingBeamSearch(
+            LABELS, self._lm, alpha=self.alpha, beta=self.beta,
+            beam_width=self.beam_width, hotwords=self._hotwords)
+
+
+class DeviceBeamSearchCTCDecoder:
+    """Beam-search decoding with the search on the device
+    (``tone_tpu/decoder.py:247-492``): the LM fused into the search
+    (``fusion=True``), or applied as an n-best rescoring pass on the host.
+
+    The search is batched (``ops/beam_decode.py``); without fusion the host
+    LM work is a handful of lookups per *hypothesis* instead of per frame
     (``decoding/rescore.py``).  ``forward`` decodes one phrase;
     ``forward_batch`` is the high-throughput path.
 
@@ -91,15 +265,15 @@ class DeviceBeamSearchCTCDecoder:
                  max_len: int = 2048, fusion: bool = False,
                  hotwords=None, hotword_weight: float = 10.0,
                  device=None) -> None:
-        """LM-free device search + host n-best rescoring with ``lm``.
+        """``fusion=False`` (default): LM-free device search + host n-best
+        rescoring with ``lm``.  ``fusion=True``: the LM itself is fused into
+        the device search (``lm`` must be a ``decoding.device_lm.DeviceLM``
+        or ``DeviceProbingLM``, or expose ``_ngrams`` tables to build one).
         ``hotwords`` biases the device search itself toward the given
-        words/phrases (ops/beam_decode.py HotwordTables).  ``device``: the
-        card unless the caller asks for the CPU.  ``fusion=True`` raises
-        NotImplementedError (ROADMAP A10)."""
+        words/phrases in either mode (ops/beam_decode.py HotwordTables).
+        ``device``: the card unless the caller asks for the CPU."""
         from tone_tpu_torch.device import resolve_device
 
-        if fusion:
-            raise NotImplementedError(_FUSED_LM)
         self.device = resolve_device(device)
         self.alpha = alpha
         self.beta = beta
@@ -117,6 +291,19 @@ class DeviceBeamSearchCTCDecoder:
         # of the shapes {(batch_floor, 64·2^k)}.
         self.batch_floor = 1
         self.max_batch: int | None = None
+        self.fusion = fusion and lm is not None
+        if self.fusion:
+            from tone_tpu_torch.decoding.device_lm import DeviceLM, DeviceProbingLM
+
+            if not isinstance(lm, (DeviceLM, DeviceProbingLM)):
+                ngrams = getattr(lm, "_ngrams", None)
+                if ngrams is None:
+                    raise TypeError(
+                        "fusion=True needs a DeviceLM/DeviceProbingLM (or "
+                        "an LM exposing its n-gram tables); got "
+                        f"{type(lm).__name__} — use load_device_lm")
+                lm = DeviceLM.from_ngrams(ngrams)
+            lm.arrays(self.device)   # the one upload, shared by copies
         self._lm = lm
         self._cuda_stream = None
 
@@ -129,11 +316,13 @@ class DeviceBeamSearchCTCDecoder:
     @classmethod
     def from_local(cls, model_path: str | Path, *, fusion: bool = False,
                    **kwargs) -> "DeviceBeamSearchCTCDecoder":
-        """Any LM ``load_lm`` reads: ARPA text (optionally .gz) or a KenLM
-        binary, probing or trie, including the reference's published
-        ``kenlm.bin`` (tone/decoder.py:84-95)."""
+        """Any LM artifact loads for either mode: ARPA text (optionally
+        .gz) or a KenLM binary, probing or trie, including the reference's
+        published ``kenlm.bin`` (tone/decoder.py:84-95)."""
         if fusion:
-            raise NotImplementedError(_FUSED_LM)
+            from tone_tpu_torch.decoding.device_lm import load_device_lm
+
+            return cls(load_device_lm(Path(model_path)), fusion=True, **kwargs)
         from tone_tpu_torch.decoding.lm import load_lm
 
         return cls(load_lm(Path(model_path)), **kwargs)
@@ -243,7 +432,16 @@ class DeviceBeamSearchCTCDecoder:
                 [r if r is not None else self._hotwords for r in hotword_rows],
                 n_rows=padded.shape[0])
         with self._stream():
-            if hotwords is not None:
+            if self.fusion:
+                state = bd.init_fused_beam_state(padded.shape[0], self.beam_width,
+                                                 self._lm, self.max_len,
+                                                 hotwords=hotwords, device=self.device)
+                state = bd.fused_beam_advance(state, padded, self._lm.arrays(self.device),
+                                              lengths, alpha=self.alpha, beta=self.beta,
+                                              hotwords=hotwords)
+                ranked_rows = bd.fused_beam_nbest(state, self._lm, pool,
+                                                  alpha=self.alpha, beta=self.beta)
+            elif hotwords is not None:
                 state = bd.init_hot_beam_state(padded.shape[0], self.beam_width,
                                                self.max_len, self.device)
                 state = bd.hot_beam_advance(state, padded, lengths, hotwords=hotwords)
@@ -253,9 +451,10 @@ class DeviceBeamSearchCTCDecoder:
                                            self.max_len, self.device)
                 state = bd.beam_advance(state, padded, lengths)
                 hyps_rows = bd.beam_nbest(state, pool)
-        return [self._dedup_ranked(rescore_nbest(hyps, self._lm, alpha=self.alpha,
-                                                 beta=self.beta), n)
-                for hyps in hyps_rows[:n_rows]]
+        if not self.fusion:
+            ranked_rows = [rescore_nbest(hyps, self._lm, alpha=self.alpha, beta=self.beta)
+                           for hyps in hyps_rows[:n_rows]]
+        return [self._dedup_ranked(ranked, n) for ranked in ranked_rows[:n_rows]]
 
     @staticmethod
     def _dedup_ranked(ranked, n: int) -> list[tuple[str, float]]:
@@ -287,11 +486,11 @@ def build_decoder(kind: "str | DecoderType" = DecoderType.GREEDY, *,
                   hotwords: "Sequence[str] | None" = None,
                   hotword_weight: float = 10.0, device=None):
     """CLI-facing decoder factory (``tone_tpu/decoder.py:505-548``):
-    ``greedy`` or ``device-beam``, with the JAX factory's ``ValueError``s
-    for inconsistent flags.  ``lm`` is an ARPA or KenLM file; ``device``
-    is the device-beam decoder's (the card unless the caller asks for the
-    CPU).  ``beam`` and ``fused_lm`` raise NotImplementedError (ROADMAP A11,
-    A10)."""
+    ``greedy``, ``beam`` (the host beam search) or ``device-beam``, with the
+    JAX factory's ``ValueError``s for inconsistent flags.  ``lm`` is an ARPA
+    or KenLM file; ``fused_lm`` fuses it into the device search (device-beam
+    only); ``device`` is the device-beam decoder's (the card unless the
+    caller asks for the CPU)."""
     if isinstance(kind, DecoderType):
         kind = "greedy" if kind is DecoderType.GREEDY else "beam"
     if hotwords and kind == "greedy":
@@ -310,7 +509,13 @@ def build_decoder(kind: "str | DecoderType" = DecoderType.GREEDY, *,
     if fused_lm:
         raise ValueError("--fused-lm only applies to --decoder device-beam")
     if kind in ("beam", "beam_search"):
-        raise NotImplementedError(_HOST_BEAM)
+        decoder = (BeamSearchCTCDecoder.from_local(
+                       lm, hotwords=hotwords, hotword_weight=hotword_weight)
+                   if lm else
+                   BeamSearchCTCDecoder(hotwords=hotwords, hotword_weight=hotword_weight))
+        if beam_width:
+            decoder.beam_width = beam_width
+        return decoder
     if kind == "greedy":
         return GreedyCTCDecoder()
     raise ValueError(f"unknown decoder kind: {kind!r}")

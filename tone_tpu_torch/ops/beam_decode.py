@@ -1,6 +1,6 @@
 """Batched CTC prefix beam search on the card (port of
-``tone_tpu/ops/beam_decode.py:1-668``: the LM-free search and the hotword
-search).
+``tone_tpu/ops/beam_decode.py``: the LM-free search, the hotword search and
+the fused-LM search).
 
 All streams and all beams advance together, one frame at a time, in torch
 tensor ops on the state's device, vectorized over (B, W, V); prefixes merge
@@ -24,8 +24,10 @@ probabilities within float rounding.  Three details carry that:
 
 The frame loop and the backtrack are Python loops over T (``jax.lax.scan``
 in JAX), so each frame issues its tensor ops one by one: on the card the
-search is bound by the host's launch rate (PERF.md).  The fused-LM search
-(``tone_tpu/ops/beam_decode.py:669-1162``) is not ported yet (ROADMAP A10).
+search is bound by the host's launch rate (PERF.md).  The fused search adds
+the LM's hash-table probes to each frame: their uint32 products go through
+``_mul_u32`` like the text hashes, and the table keys are compared as int32
+(``_as_i32``).
 """
 
 from __future__ import annotations
@@ -165,6 +167,31 @@ def _frame_step(cf, ci, p, active, c: _Consts, hw=None):
     probabilities.  ``hw`` (device hotword tables) switches in the biased
     search: ranking uses ``logaddexp(p_b, p_nb) + bias``.  Returns the new
     carry and the (B, W, 2) (parent, emitted token) backpointers."""
+    cand_f, cand_i = _candidates(cf, ci, p, c, hw)
+    tot = torch.logaddexp(cand_f[..., 0], cand_f[..., 1])
+    if hw is not None:
+        tot = tot + cand_f[..., 3]
+    n_f, n_i = _keep_best(cand_f, cand_i, tot, cf.shape[1])
+    # inactive streams: state unchanged, identity backpointers
+    keep = active[:, None, None]
+    n_ci = ci.shape[2]
+    return (torch.where(keep, n_f, cf), torch.where(keep, n_i[..., :n_ci], ci),
+            torch.where(keep, n_i[..., n_ci:], c.self_pe))
+
+
+def _keep_best(cand_f, cand_i, tot, w: int):
+    """The best ``w`` candidates by ``tot``: the first W of a stable
+    descending sort (XLA's TopK order)."""
+    idx = torch.sort(tot, dim=1, descending=True, stable=True)[1][:, :w, None]
+    return (torch.gather(cand_f, 1, idx.expand(-1, -1, cand_f.shape[2])),
+            torch.gather(cand_i, 1, idx.expand(-1, -1, cand_i.shape[2])))
+
+
+def _candidates(cf, ci, p, c: _Consts, hw=None):
+    """The merged candidates of one frame: ``C = W + W·(V-1)`` rows (selves
+    first), as ``cand_f`` (B, C, 2|4) float32 (p_b, p_nb[, tent, bias])
+    and ``cand_i`` (B, C, 5|6) int64 (h1, h2, lc[, node], parent, emit) —
+    the carry's columns, then the backpointer."""
     p_b, p_nb = cf[..., 0], cf[..., 1]
     h1, h2, lc = ci[..., 0], ci[..., 1], ci[..., 2]
     b_sz, w = p_b.shape
@@ -227,20 +254,7 @@ def _frame_step(cf, ci, p, active, c: _Consts, hw=None):
     e_i += [c.e_parent, exp_e.reshape(b_sz, n_ext)]
     cand_i = torch.cat([torch.cat([ci, c.self_pe], -1), torch.stack(e_i, -1)], 1)
     cand_f = torch.cat([torch.stack(s_f, -1), torch.stack(e_f, -1)], 1)
-    tot = torch.logaddexp(cand_f[..., 0], cand_f[..., 1])
-    if hw is not None:
-        tot = tot + cand_f[..., 3]
-
-    # --- keep the best W: the first W of a stable descending sort ----------
-    idx = torch.sort(tot, dim=1, descending=True, stable=True)[1][:, :w, None]
-    n_i = torch.gather(cand_i, 1, idx.expand(-1, -1, cand_i.shape[2]))
-    n_f = torch.gather(cand_f, 1, idx.expand(-1, -1, cand_f.shape[2]))
-
-    # inactive streams: state unchanged, identity backpointers
-    keep = active[:, None, None]
-    n_ci = ci.shape[2]
-    return (torch.where(keep, n_f, cf), torch.where(keep, n_i[..., :n_ci], ci),
-            torch.where(keep, n_i[..., n_ci:], c.self_pe))
+    return cand_f, cand_i
 
 
 def _backtrack_and_splice(tokens0, lens0, pes):
@@ -554,3 +568,401 @@ def hot_beam_nbest(state: HotBeamState, n: int = 1) -> list[list[tuple[str, floa
     """Per stream, up to ``n`` (text, acoustic_logp + bias) pairs — the
     ranking the host hotword search uses (biased totals)."""
     return _nbest(state.scores, state.base.tokens, state.base.lens, n)
+
+
+# ---------------------------------------------------------------------------
+# Shallow fusion: the word n-gram LM (decoding/device_lm.py) joins the search
+# itself (``tone_tpu/ops/beam_decode.py:658-1162``).  Per-beam word-context
+# ids, a vocab-trie node for the in-progress word and the accumulated fusion
+# score ride the beam state; the space expansion scores its completed word
+# with a Katz-backoff walk over the LM's hash tables, inside the frame step,
+# so the LM steers pruning (pyctcdecode-style fusion, not n-best rescoring).
+# ---------------------------------------------------------------------------
+
+LOG10_TO_LN = float(np.log(10.0))
+_FIB = 0x9E3779B1                      # Fibonacci bucket multiplier (device_lm)
+_SEED1, _SEED2 = 0x811C9DC5, 0x85EBCA6B
+_COMBINE_A = 8978948897894561157       # kenlm_binary.combine_word_hash constants
+_COMBINE_B = 17894857484156487943
+_iotas: dict = {}
+
+
+def _iota(n: int, device) -> torch.Tensor:
+    """``arange(n)`` on ``device``, made once (a probe window's offsets)."""
+    key = (n, str(device))
+    t = _iotas.get(key)
+    if t is None:
+        t = _iotas[key] = torch.arange(n, dtype=torch.int64, device=device)
+    return t
+
+
+class FusedBeamState(NamedTuple):
+    """Beam state + the LM riding it (+ the hotword automaton, when the
+    search is biased).  Word ids, trie nodes and automaton nodes are int64."""
+
+    base: BeamState
+    ctx: torch.Tensor     # (B, W, order-1) word ids, -1 = missing
+    node: torch.Tensor    # (B, W) vocab-trie node; 0 root, -1 dead
+    wid: torch.Tensor     # (B, W) node_word[node] (-1 = not a word)
+    lm_sc: torch.Tensor   # (B, W) f32 accumulated fusion score (natural log)
+    hw_node: torch.Tensor | None = None   # (B, W)
+    hw_tent: torch.Tensor | None = None   # (B, W) f32 retractable boost
+    hw_bias: torch.Tensor | None = None   # (B, W) f32 total applied boost
+
+    @property
+    def scores(self) -> torch.Tensor:
+        s = self.base.totals + self.lm_sc
+        return s if self.hw_bias is None else s + self.hw_bias
+
+
+def init_fused_beam_state(batch: int, beam_width: int, lm, max_len: int = 2048,
+                          hotwords: HotwordTables | None = None,
+                          device: str | torch.device = "cpu") -> FusedBeamState:
+    """``lm`` is a decoding.device_lm.DeviceLM or DeviceProbingLM."""
+    k = lm.order - 1
+    ctx = torch.full((batch, beam_width, k), -1, dtype=torch.int64, device=device)
+    if k:
+        ctx[:, :, -1] = lm.bos_id  # host begin_context() == ("<s>",)
+
+    def zeros(dtype):
+        return torch.zeros((batch, beam_width), dtype=dtype, device=device)
+
+    hot = hotwords is not None
+    return FusedBeamState(
+        base=init_beam_state(batch, beam_width, max_len, device), ctx=ctx,
+        node=zeros(torch.int64),
+        wid=torch.full((batch, beam_width), -1, dtype=torch.int64, device=device),
+        lm_sc=zeros(torch.float32),
+        hw_node=zeros(torch.int64) if hot else None,
+        hw_tent=zeros(torch.float32) if hot else None,
+        hw_bias=zeros(torch.float32) if hot else None)
+
+
+def _as_i32(h: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 as int32 of the same bits — the
+    representation of the LM tables' key columns (an int64 key >= 2**31
+    never equals an int32 column: promotion would compare -1 with 2**32-1)."""
+    return (h - ((h >> 31) << 32)).to(torch.int32)
+
+
+def _probe(table: torch.Tensor, probe: int, key1: torch.Tensor, keys: torch.Tensor):
+    """Probe an open-addressing table for uint32 keys: bucket = the high
+    bits of ``key1 * 0x9E3779B1`` (a wrapping u32 product), then a linear
+    window of ``probe`` rows, gathered at once.  ``keys`` (..., n) are the
+    keys to match against the rows' first n columns.  Returns (found,
+    payload): the other columns of the first matching row (of the window's
+    first row where none matches)."""
+    size = table.shape[0]
+    shift = 32 - size.bit_length() + 1
+    base = _mul_u32(key1, _FIB) >> shift
+    rows = table[(base[..., None] + _iota(probe, key1.device)) & (size - 1)]
+    n = keys.shape[-1]
+    hit = (rows[..., :n] == _as_i32(keys)[..., None, :]).all(-1)    # (..., P)
+    first = hit.to(torch.uint8).argmax(-1)
+    idx = first[..., None, None].expand(*first.shape, 1, rows.shape[-1] - n)
+    return hit.any(-1), torch.gather(rows[..., n:], -2, idx)[..., 0, :]
+
+
+def _lm_lookup(lm, h1, h2):
+    """(found, log10 prob, log10 backoff) for uint32 query hashes of any
+    shape: key compare and payload from one row gather (the floats are a
+    bitcast of the int32 columns; 0.0 where not found)."""
+    found, payload = _probe(lm.table, lm.probe, h1, torch.stack([h1, h2], -1))
+    payload = torch.where(found[..., None], payload.view(torch.float32), 0.0)
+    return found, payload[..., 0], payload[..., 1]
+
+
+def _mix_u(h1, h2, u):
+    """:func:`_mix` with ``u = v + 1`` given."""
+    return ((h1 * _H1_MUL) & _U32) ^ u, (_mul_u32(h2, _H2_MUL) + u) & _U32
+
+
+def _lm_score(lm, ctx, wid):
+    """log10 P(wid | ctx) with Katz backoff; ctx (..., K) word ids (-1 =
+    missing), wid (...).  Twin of DeviceLM.score_ids / ArpaLM.score:
+    longest context first, accumulating dropped contexts' backoffs.  All
+    (2K+1) gram/context queries go through one stacked lookup.
+
+    Probing-binary arrays dispatch to the KenLM-semantics scorer."""
+    from tone_tpu_torch.decoding.device_lm import DeviceProbingLMArrays
+
+    if isinstance(lm, DeviceProbingLMArrays):
+        return _lm_score_probing(lm, ctx, wid)
+    k = ctx.shape[-1]
+    m1 = (_SEED1 * _H1_MUL) & _U32            # the seed's first products
+    m2 = (_SEED2 * _H2_MUL) & _U32
+    u, uw = ctx + 1, wid + 1
+    # column i: the chain hash of ctx[i:] (the context of length k - i),
+    # grown one position per step
+    s1, s2 = u ^ m1, (u + m2) & _U32
+    for step in range(1, k):
+        t1, t2 = _mix_u(s1[..., :k - step], s2[..., :k - step], u[..., step:])
+        s1 = torch.cat([t1, s1[..., k - step:]], -1)
+        s2 = torch.cat([t2, s2[..., k - step:]], -1)
+    g1, g2 = _mix_u(s1, s2, uw[..., None])    # the gram (ctx[i:], wid)
+    # query columns: grams of length k+1 .. 2, the unigram, contexts of
+    # length k .. 1 — longest first, as the walk reads them
+    q1 = torch.cat([g1, (uw ^ m1)[..., None], s1], -1)
+    q2 = torch.cat([g2, ((uw + m2) & _U32)[..., None], s2], -1)
+    found, prob, bo = _lm_lookup(lm, q1, q2)
+
+    # The walk: the longest gram found (with a whole context) gives the
+    # probability; every context longer than it that is found adds its
+    # backoff, summed longest first.  No gram found at all gives 0.
+    valid = ctx >= 0
+    hit = found[..., :k + 1] & torch.nn.functional.pad(valid, (0, 1), value=True)
+    bo = torch.where(found[..., k + 1:] & valid, bo[..., k + 1:], 0.0)
+    sums = [torch.zeros_like(bo[..., 0])]
+    for level in range(k):
+        sums.append(sums[-1] + bo[..., level])
+    first = hit.to(torch.uint8).argmax(-1, keepdim=True)
+    return (torch.gather(prob[..., :k + 1], -1, first)
+            + torch.gather(torch.stack(sums, -1), -1, first))[..., 0]
+
+
+# --- KenLM probing binaries: the 64-bit chain hash ---------------------------
+# A probing ``kenlm.bin`` stores grams only as 64-bit chained hashes
+# (kenlm_binary.combine_word_hash), recomputed here in two uint32 limbs held
+# in int64 (JAX's emulation on the TPU; int64 products would overflow).
+
+
+def _umul32_wide(a, c32: int):
+    """``a`` (uint32 values in int64) * ``c32`` (< 2**32) as (high, low)
+    uint32 words, exactly: ``a`` times each 16-bit half of ``c32`` is below
+    2**48."""
+    x = a * (c32 >> 16)
+    s = ((x & 0xFFFF) << 16) + a * (c32 & 0xFFFF)       # < 2**49
+    return (x >> 16) + (s >> 32), s & _U32
+
+
+def _mul64_const(hi, lo, c: int):
+    """(hi, lo) u64 * c mod 2**64 -> (hi, lo); ``hi=None`` means 0."""
+    c_lo, c_hi = c & _U32, (c >> 32) & _U32
+    p_hi, p_lo = _umul32_wide(lo, c_lo)
+    out_hi = p_hi + _mul_u32(lo, c_hi)
+    if hi is not None:
+        out_hi = out_hi + _mul_u32(hi, c_lo)
+    return out_hi & _U32, p_lo
+
+
+def _combine64(hi, lo, wid):
+    """KenLM CombineWordHash: ``(h * A) ^ ((1 + w) * B)`` mod 2**64, with
+    ``w`` a word id (-1 chains garbage, masked by the caller's validity
+    flag)."""
+    ha_hi, ha_lo = _mul64_const(hi, lo, _COMBINE_A)
+    wb_hi, wb_lo = _mul64_const(None, (wid + 1) & _U32, _COMBINE_B)
+    return ha_hi ^ wb_hi, ha_lo ^ wb_lo
+
+
+def _salts(k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) words of the order salts of the probing queries: the
+    extensions n = 2..k+1, then the contexts of length 2..k."""
+    key = ("salt", k, str(device))
+    t = _iotas.get(key)
+    if t is None:
+        from tone_tpu_torch.decoding.device_lm import _order_salt
+
+        s = [_order_salt(n) for n in range(2, k + 2)] + [_order_salt(n) for n in range(2, k + 1)]
+        t = _iotas[key] = (torch.tensor([x & _U32 for x in s], device=device),
+                           torch.tensor([x >> 32 for x in s], device=device))
+    return t
+
+
+def _lm_score_probing(lm, ctx, wid):
+    """log10 P(wid | ctx) against a probing binary's own tables — twin of
+    KenLMBinary.score_ids (short-to-long extension, then backoff weights of
+    context grams at least as long as the match).  All ids are KenLM
+    vocabulary ids (OOV = 0); ctx entries of -1 are missing.  The
+    extension chain (wid, ctx[-1], ctx[-2], …) and the context chain
+    (ctx[-1], ctx[-2], …) combine with the same word at each depth, so they
+    advance stacked; all (2K-1) probes go through one lookup."""
+    k = ctx.shape[-1]
+    order = k + 1
+    prob = lm.uni_prob[wid]
+    if k == 0:
+        return prob
+    e_hi, e_lo = _combine64(None, wid, ctx[..., k - 1])
+    ext, ctxs = [(e_hi, e_lo)], []
+    if k > 1:
+        hi = torch.stack([e_hi, torch.zeros_like(e_hi)])
+        lo = torch.stack([e_lo, ctx[..., k - 1].clamp(min=0)])
+        for depth in range(2, k + 1):
+            hi, lo = _combine64(hi, lo, ctx[..., k - depth])
+            ext.append((hi[0], lo[0]))
+            ctxs.append((hi[1], lo[1]))
+    salt_lo, salt_hi = _salts(k, ctx.device)
+    q1 = torch.stack([lo for _, lo in ext + ctxs], -1) ^ salt_lo
+    q2 = torch.stack([hi for hi, _ in ext + ctxs], -1) ^ salt_hi
+    found, qprob, qbo = _lm_lookup(lm, q1, q2)
+
+    valid = ctx >= 0
+    matched = torch.ones_like(wid)
+    alive = torch.ones_like(wid, dtype=torch.bool)
+    for i, n in enumerate(range(2, order + 1)):
+        hit = alive & valid[..., k - (n - 1)] & found[..., i]
+        prob = torch.where(hit, qprob[..., i], prob)
+        matched = torch.where(hit, n, matched)
+        alive = hit
+    cid1 = ctx[..., k - 1]
+    ubo = lm.uni_backoff[cid1.clamp(min=0)]
+    backoff = torch.where((cid1 >= 0) & (matched <= 1), ubo, 0.0)
+    for j, clen in enumerate(range(2, order)):
+        qi = k + j
+        backoff = backoff + torch.where(valid[..., k - clen] & (matched <= clen)
+                                        & found[..., qi], qbo[..., qi], 0.0)
+    return prob + backoff
+
+
+def _trie_step(lm, node, char):
+    """Vocab-trie transition: (child, child's terminal word id) from one
+    row gather over the edge table (rows: key, child, node_word[child]).
+    -1 propagates (dead = not a vocab prefix)."""
+    key = (node * len(LABELS) + char) & _U32
+    found, out = _probe(lm.edges, lm.edge_probe, key, key[..., None])
+    out = torch.where((found & (node >= 0))[..., None], out, -1).long()
+    return out[..., 0], out[..., 1]
+
+
+class _Fusion:
+    """What a fused frame step reads besides its carry: the LM's device
+    view and the fusion weights as float32 values (JAX's
+    ``(alpha * LOG10_TO_LN) * score + beta`` in float32)."""
+
+    def __init__(self, lm, alpha: float, beta: float) -> None:
+        self.lm = lm
+        self.scale = float(np.float32(np.float32(alpha) * np.float32(LOG10_TO_LN)))
+        self.beta = float(np.float32(beta))
+
+
+def _fused_frame_step(cf, ci, li, lm_sc, p, active, c: _Consts, fz: _Fusion, hw=None):
+    """One fused frame (``tone_tpu/ops/beam_decode.py:913-1071``): the
+    LM-free candidates and merges of :func:`_candidates`, ranked by
+    acoustic + fusion (+ hotword) score, with the LM state reconstructed on
+    the W survivors from (parent, emitted).
+
+    Carry: ``cf``/``ci`` as in :func:`_frame_step`; ``li`` (B, W, 2+K)
+    int64 holds (trie node, its word id, the K context word ids);
+    ``lm_sc`` (B, W) the fusion score.  The only pre-prune LM work is one
+    word score per beam (the space expansion needs it in the ranking)."""
+    lm = fz.lm
+    lc = ci[..., 2]
+    node, nw, ctx = li[..., 0], li[..., 1], li[..., 2:]
+    k = ctx.shape[-1]
+    b_sz, w = lc.shape
+
+    # --- the one pre-prune LM computation: the space expansion's word ------
+    word_event = (lc >= 0) & (lc != SPACE_ID)
+    is_vocab = nw >= 0    # a word id implies a live node (dead nodes carry -1)
+    wid = torch.where(is_vocab, nw, lm.unk_id)     # scored as <unk> (host parity)
+    # an OOV word stays in the context as an id that hashes to nothing
+    ctx_wid = torch.where(is_vocab, wid, lm.oov_ctx_id)
+    delta = _lm_score(lm, ctx, wid) * fz.scale + fz.beta
+    exp_lm = lm_sc[:, :, None] + torch.where(c.is_space & word_event[:, :, None],
+                                             delta[:, :, None], 0.0)
+
+    cand_f, cand_i = _candidates(cf, ci, p, c, hw)
+    c_lm = torch.cat([lm_sc, exp_lm.reshape(b_sz, -1)], 1)
+    tot = torch.logaddexp(cand_f[..., 0], cand_f[..., 1]) + c_lm
+    if hw is not None:
+        tot = tot + cand_f[..., 3]
+    n_f, n_i = _keep_best(cand_f, cand_i, tot, w)
+    n_parent, n_e = n_i[..., -2], n_i[..., -1]
+
+    # --- post-prune LM state transitions on the W survivors ----------------
+    completed = n_e == SPACE_ID                    # a space with a word event
+    shifted = torch.cat([ctx[..., 1:], ctx_wid[..., None]], -1) if k else ctx
+    par = torch.cat([li, shifted], -1)             # node, nw, ctx, shifted ctx
+    g = torch.gather(par, 1, n_parent[..., None].expand(-1, -1, par.shape[2]))
+    gf = torch.gather(torch.stack([lm_sc, delta], -1), 1,
+                      n_parent[..., None].expand(-1, -1, 2))
+    p_node = g[..., 0]
+    new_ctx = torch.where(completed[..., None], g[..., 2 + k:], g[..., 2:2 + k])
+    is_char = n_e >= 0                  # a character, unless completed
+    child, child_word = _trie_step(lm, p_node, n_e.clamp(min=0))
+    new_node = torch.where(completed, 0, torch.where(is_char, child, p_node))
+    new_nw = torch.where(completed, -1, torch.where(is_char, child_word, g[..., 1]))
+    new_lm = gf[..., 0] + torch.where(completed, gf[..., 1], 0.0)
+    new_li = torch.cat([new_node[..., None], new_nw[..., None], new_ctx], -1)
+
+    keep = active[:, None, None]
+    n_ci = ci.shape[2]
+    return (torch.where(keep, n_f, cf), torch.where(keep, n_i[..., :n_ci], ci),
+            torch.where(keep, new_li, li), torch.where(active[:, None], new_lm, lm_sc),
+            torch.where(keep, n_i[..., n_ci:], c.self_pe))
+
+
+def fused_beam_advance(state: FusedBeamState, logprobs, lm_arrays, lengths=None, *,
+                       alpha: float = 0.4, beta: float = 0.9,
+                       token_min_logp: float = -5.0,
+                       hotwords: HotwordTables | None = None) -> FusedBeamState:
+    """Consume (B, T, V) frames with the LM fused into the search, on the
+    state's device.
+
+    ``lm_arrays`` is ``lm.arrays(device)`` of a DeviceLM or DeviceProbingLM.
+    Same masking semantics as :func:`beam_advance`.  ``hotwords`` adds
+    contextual biasing on top of the fusion (the state must come from
+    ``init_fused_beam_state(..., hotwords=...)``).
+    """
+    base = state.base
+    b_sz, w = base.p_b.shape
+    dev = base.p_b.device
+    logprobs, active = _prepare(logprobs, lengths, dev)
+    frames = _pruned_frames(logprobs, float(token_min_logp))
+    c = _Consts(b_sz, w, frames.shape[-1] - 1, dev)
+    fz = _Fusion(lm_arrays, alpha, beta)
+    hw = None
+    f_fields, i_fields = [base.p_b, base.p_nb], [base.h1, base.h2, base.lc]
+    if hotwords is not None:
+        hw = _device_tables(hotwords, dev)
+        i_fields.append(state.hw_node)
+        f_fields += [state.hw_tent, state.hw_bias]
+    cf, ci = torch.stack(f_fields, -1), torch.stack(i_fields, -1)
+    li = torch.cat([state.node[..., None], state.wid[..., None], state.ctx], -1)
+    lm_sc = state.lm_sc
+    pes = []
+    for t in range(frames.shape[0]):
+        cf, ci, li, lm_sc, pe = _fused_frame_step(cf, ci, li, lm_sc, frames[t],
+                                                  active[t], c, fz, hw)
+        pes.append(pe)
+    tokens, lens = _backtrack_and_splice(base.tokens, base.lens, pes)
+    hot = hotwords is not None
+    return FusedBeamState(
+        base=BeamState(cf[..., 0], cf[..., 1], ci[..., 0], ci[..., 1], ci[..., 2],
+                       tokens, lens),
+        ctx=li[..., 2:], node=li[..., 0], wid=li[..., 1], lm_sc=lm_sc,
+        hw_node=ci[..., 3] if hot else None, hw_tent=cf[..., 2] if hot else None,
+        hw_bias=cf[..., 3] if hot else None)
+
+
+def fused_beam_nbest(state: FusedBeamState, lm, n: int = 1, *,
+                     alpha: float = 0.4, beta: float = 0.9,
+                     ) -> list[list[tuple[str, float]]]:
+    """Host readout with the host search's final ranking: acoustic total +
+    accumulated fusion score + the provisional score of the trailing
+    in-progress word (decoding/beam.py StreamingBeamSearch.result())."""
+    totals = state.base.totals.cpu().numpy()
+    lm_sc = state.lm_sc.cpu().numpy()
+    if state.hw_bias is not None:
+        lm_sc = lm_sc + state.hw_bias.cpu().numpy()
+    tokens = state.base.tokens.cpu().numpy()
+    lens = state.base.lens.cpu().numpy()
+    ctxs = state.ctx.cpu().numpy()
+    out = []
+    for b in range(totals.shape[0]):
+        scored = []
+        for wi in range(totals.shape[1]):
+            if not np.isfinite(totals[b, wi]):
+                continue
+            text = "".join(LABELS[i] for i in tokens[b, wi, :lens[b, wi]])
+            partial = text.rsplit(" ", 1)[-1]
+            final = totals[b, wi] + lm_sc[b, wi]
+            if partial:
+                ctx_ids = [int(i) for i in ctxs[b, wi] if i >= 0]
+                final += (alpha * LOG10_TO_LN
+                          * lm.score_ids(ctx_ids, lm.word_id(partial))
+                          + beta)
+            scored.append((text.strip(), float(final)))
+        # host final_key parity: score desc, then text asc on exact ties
+        scored.sort(key=lambda p: (-p[1], p[0]))
+        out.append(scored[:n])
+    return out

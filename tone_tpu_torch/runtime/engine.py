@@ -1,19 +1,18 @@
 """Multi-stream serving engine: stream table, tick loop, phrase decoding
-(port of ``tone_tpu/runtime/engine.py`` with the greedy and the device-beam
-decoders).
+(port of ``tone_tpu/runtime/engine.py``).
 
 A stream table maps stream ids to arena slots; idle streams are evicted
 after a timeout (Triton's ``max_sequence_idle_microseconds: 15000000``),
 streams beyond the slot count wait as candidates, and each tick batches all
 pending chunks into one arena step.  Phrase segmentation is one vectorized
 pass over the ticking slots (``BatchLogprobSplitter``).  Final phrases
-decode on a small thread pool: greedily one by one, or, with a
-``DeviceBeamSearchCTCDecoder``, all phrases of a tick in one batched device
-call (with per-stream n-best and hotwords).  Interim text comes from the
-greedy collapse in the tick or from a beam arena on the device.
-
-The host beam decoders (``interim_beam``, hotwords on a greedy engine)
-raise ``NotImplementedError`` naming their ROADMAP item (A11).
+decode on a small thread pool: one by one with a host decoder (greedy, or
+the host beam ``BeamSearchCTCDecoder``), or, with a
+``DeviceBeamSearchCTCDecoder`` (LM-free, rescoring or fused), all phrases
+of a tick in one batched device call (with per-stream n-best and hotwords).
+Interim text comes from the greedy collapse in the tick, from a carried
+host beam search per stream on the pool (``interim_beam``), or from a beam
+arena on the device (``interim_device_beam``).
 """
 
 from __future__ import annotations
@@ -27,7 +26,11 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from tone_tpu_torch.config import ToneConfig
-from tone_tpu_torch.decoder import DeviceBeamSearchCTCDecoder, GreedyCTCDecoder
+from tone_tpu_torch.decoder import (
+    BeamSearchCTCDecoder,
+    DeviceBeamSearchCTCDecoder,
+    GreedyCTCDecoder,
+)
 from tone_tpu_torch.pipeline import TextPhrase, phrase_times, word_timings
 from tone_tpu_torch.runtime.arena import StreamArena
 from tone_tpu_torch.splitter import BatchLogprobSplitter
@@ -47,9 +50,19 @@ class _Stream:
     interim_prev: int = -1          # last argmax token id (CTC collapse)
     interim_chars: list = field(default_factory=list)
     interim_sent: str = ""
-    # Per-request hotwords on a device decoder: the automaton tables ride
-    # the batched finals call as one row of stacked tables; a list too big
-    # to stack gets a per-stream decoder instead.
+    # Interim beam-decode carry (interim_beam): a carried-state host beam
+    # search advanced on the decode pool, one task in flight per stream;
+    # frames queue here between tasks, a phrase boundary folds into the next
+    # task as a reset.
+    beam: object = None
+    beam_frames: list = field(default_factory=list)
+    beam_task: Future | None = None
+    beam_reset: bool = False
+    beam_gen: int = 0               # bumped at boundaries; stale results drop
+    # Per-request hotwords: on a device decoder the automaton tables ride
+    # the batched finals call as one row of stacked tables (a list too big
+    # to stack gets a per-stream device decoder instead); on a host decoder
+    # the stream gets a host beam decoder of its own.
     decoder: object = None          # per-stream decoder override
     hotwords: tuple | None = None   # (words, weight) behind the biasing —
     # plain data so suspend/resume can carry it across engines
@@ -67,11 +80,6 @@ class EngineStats:
     pending_streams: int = 0    # candidates queued for a slot
     last_tick_seconds: float = 0.0
     last_host_seconds: float = 0.0  # tick cost excluding the device step wait
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tone_tpu_torch yet "
-                               f"(ROADMAP queue {item})")
 
 
 class MultiStreamEngine:
@@ -112,20 +120,26 @@ class MultiStreamEngine:
                  max_candidates: int = 0,
                  candidate_buffer_chunks: int = 200,
                  hotword_warmup_buckets=(32,)) -> None:
-        """``decoder``: ``GreedyCTCDecoder`` (the default) or
-        ``DeviceBeamSearchCTCDecoder``.  With the device decoder, final
-        phrases of a tick decode in one batched call; the engine works on a
-        shallow copy pinned to the engine's device and to
-        ``final_decode_batch`` rows per call (batches pad up to and split
-        at it, so ``warmup`` runs every shape a tick can ask for).
+        """``decoder``: ``GreedyCTCDecoder`` (the default), the host beam
+        ``BeamSearchCTCDecoder``, or ``DeviceBeamSearchCTCDecoder`` (any
+        object with ``forward``).  Host decoders decode each final phrase
+        on the pool.  With the device decoder, final phrases of a tick
+        decode in one batched call; the engine works on a shallow copy
+        pinned to the engine's device and to ``final_decode_batch`` rows per
+        call (batches pad up to and split at it, so ``warmup`` runs every
+        shape a tick can ask for).
 
         ``interim_transcripts``: also decode each in-progress phrase in the
         tick; ``tick`` then reports partial text per stream in
-        ``last_interims``.  ``interim_device_beam``: the partials come from
-        a beam arena on the device (``ops/beam_decode.py``), advanced for
-        every ticking slot in one call per tick and reset at phrase
-        boundaries, biased like the finals when the decoder has hotwords;
-        ``interim_beam_width`` / ``interim_beam_max_len`` size it.
+        ``last_interims``.  ``interim_beam``: the partials come from a
+        carried-state host beam search per stream (``decoder.streaming()``)
+        advanced on the decode pool, at most one advance in flight per
+        stream, its text reported on a later tick.  ``interim_device_beam``:
+        the partials come from a beam arena on the device
+        (``ops/beam_decode.py``), advanced for every ticking slot in one call
+        per tick and reset at phrase boundaries, biased like the finals when
+        the decoder has hotwords; ``interim_beam_width`` /
+        ``interim_beam_max_len`` size it.
 
         ``word_timestamps``: final phrases carry per-word times and
         confidences (CTC forced alignment, ``align.py``), on the pool.
@@ -145,16 +159,9 @@ class MultiStreamEngine:
         buffer up to ``candidate_buffer_chunks`` chunks host-side and bind
         oldest-first as slots free (Triton's max_candidate_sequences).
 
-        ``device``: ``cuda`` unless the caller asks for the CPU.
-
-        Not ported yet (raise NotImplementedError): ``interim_beam`` and
-        decoders other than the two above, such as the host beam (A11)."""
-        if interim_beam:
-            raise _not_ported("interim_beam (carried host beam search)", "A11")
-        if decoder is not None and not isinstance(
-                decoder, (GreedyCTCDecoder, DeviceBeamSearchCTCDecoder)):
-            raise _not_ported(f"decoding with {type(decoder).__name__} "
-                              "(host beam decoders)", "A11")
+        ``device``: ``cuda`` unless the caller asks for the CPU."""
+        if decoder is not None and not callable(getattr(decoder, "forward", None)):
+            raise TypeError(f"decoder {type(decoder).__name__} has no forward(logprobs)")
         if nbest and (nbest < 0 or nbest > self.MAX_NBEST):
             raise ValueError(f"nbest must be 0..{self.MAX_NBEST}, got {nbest}")
         if nbest == 1:
@@ -175,8 +182,12 @@ class MultiStreamEngine:
             decoder._cuda_stream = None
             decoder.batch_floor = decoder.max_batch = final_decode_batch
         self.decoder = decoder or GreedyCTCDecoder()
-        self.interim_transcripts = interim_transcripts or interim_device_beam
+        self.interim_transcripts = (interim_transcripts or interim_beam
+                                    or interim_device_beam)
         self.interim_device_beam = interim_device_beam
+        self.interim_beam = (interim_beam and not interim_device_beam
+                             and hasattr(self.decoder, "streaming"))
+        self._interim_results: dict[int, tuple[int, str]] = {}
         self._device_beams = None       # lazy ops.beam_decode (Hot)BeamState
         self._device_beam_width = interim_beam_width
         self._device_beam_max_len = interim_beam_max_len
@@ -204,6 +215,7 @@ class MultiStreamEngine:
         self._beam_force_reset = np.zeros(n_slots, bool)
         self._next_id = 0
         self._lock = threading.Lock()
+        self._interim_lock = threading.Lock()  # guards _interim_results only
         self._device_lock = threading.Lock()   # serializes arena state swaps
         self._decode_pool = ThreadPoolExecutor(max_workers=decode_workers,
                                                thread_name_prefix="ctc-decode")
@@ -260,32 +272,42 @@ class MultiStreamEngine:
 
     def set_stream_hotwords(self, sid: int, hotwords, hotword_weight: float = 10.0) -> None:
         """Per-request contextual biasing: this stream's final phrases (and
-        its interim device beams) decode with the given hotwords.  With the
-        device decoder the bias is data: the request's automaton tables
-        become one row of the tick's batched finals call (stacked per-row
-        tables, padded to power-of-two node counts).  A list so large that
-        stacking it would pass MAX_STACKED_HOTWORD_BYTES gets a per-stream
-        device decoder sharing the engine's LM (per-phrase decodes).  An
-        empty list clears an earlier override.  On a greedy engine a
-        non-empty list raises NotImplementedError (the JAX engine builds a
-        host beam, ROADMAP A11)."""
+        its interim beams) decode with the given hotwords.  With the device
+        decoder the bias is data: the request's automaton tables become one
+        row of the tick's batched finals call (stacked per-row tables,
+        padded to power-of-two node counts).  A list so large that stacking
+        it would pass MAX_STACKED_HOTWORD_BYTES gets a per-stream device
+        decoder sharing the engine's LM and fusion (per-phrase decodes).
+        With a host decoder (greedy or host beam) the stream gets a host
+        beam decoder of its own, reusing the engine decoder's LM.  An empty
+        list clears an earlier override."""
         override = None
         tables = None
         if hotwords:
-            if not self.device_finals:
-                raise _not_ported("per-request hotword biasing on a greedy engine "
-                                  "(host beam decoder)", "A11")
-            from tone_tpu_torch.ops.beam_decode import make_hotword_tables
-
             base = self.decoder
-            tables = make_hotword_tables(hotwords, hotword_weight)
-            if self._stacked_hotword_bytes(tables) > self.MAX_STACKED_HOTWORD_BYTES:
-                override = DeviceBeamSearchCTCDecoder(
-                    base._lm, alpha=base.alpha, beta=base.beta,
-                    beam_width=base.beam_width, nbest=base.nbest_hyps,
-                    max_len=base.max_len, hotwords=hotwords,
-                    hotword_weight=hotword_weight, device=base.device)
-                tables = None
+            if self.device_finals:
+                from tone_tpu_torch.ops.beam_decode import make_hotword_tables
+
+                tables = make_hotword_tables(hotwords, hotword_weight)
+                if self._stacked_hotword_bytes(tables) > self.MAX_STACKED_HOTWORD_BYTES:
+                    override = DeviceBeamSearchCTCDecoder(
+                        base._lm, alpha=base.alpha, beta=base.beta,
+                        beam_width=base.beam_width, nbest=base.nbest_hyps,
+                        max_len=base.max_len, fusion=base.fusion, hotwords=hotwords,
+                        hotword_weight=hotword_weight, device=base.device)
+                    tables = None
+            else:
+                from tone_tpu_torch.decoding.lm import LanguageModel
+
+                lm = getattr(base, "_lm", None)
+                override = BeamSearchCTCDecoder(
+                    lm if isinstance(lm, LanguageModel) else None,
+                    native_lm=getattr(base, "_native_lm", None),
+                    alpha=getattr(base, "alpha", BeamSearchCTCDecoder.ALPHA),
+                    beta=getattr(base, "beta", BeamSearchCTCDecoder.BETA),
+                    beam_width=getattr(base, "beam_width", None)
+                    or BeamSearchCTCDecoder.BEAM_WIDTH,
+                    hotwords=hotwords, hotword_weight=hotword_weight)
         with self._lock:
             stream = self._streams.get(sid)
             if stream is None:
@@ -294,6 +316,12 @@ class MultiStreamEngine:
             stream.hotword_tables = tables
             stream.hotwords = ((tuple(hotwords), float(hotword_weight))
                                if hotwords else None)
+            # the carried interim search rebuilds (biased or not); a new
+            # generation drops an in-flight task's stale result
+            stream.beam = None
+            stream.beam_gen += 1
+            stream.beam_reset = True
+            stream.beam_frames.clear()
         if tables is not None:
             # One warm per effective node bucket, on the pool, overlapping
             # the stream's early audio.
@@ -364,12 +392,10 @@ class MultiStreamEngine:
 
     def resume_stream(self, snapshot: dict) -> int:
         """Restore a ``suspend_stream`` snapshot into a fresh slot; returns
-        the new stream id; its n-best and hotwords come along.  Raises
-        RuntimeError when no slot is free."""
+        the new stream id; its n-best and hotwords come along (the biasing
+        is rebuilt for this engine's decoder family).  Raises RuntimeError
+        when no slot is free."""
         nbest = int(snapshot.get("nbest") or 0)
-        if snapshot.get("hotwords") and not self.device_finals:
-            raise _not_ported("resuming a hotword-biased stream on a greedy engine "
-                              "(host beam decoder)", "A11")
         with self._lock:
             if not self._free_slots:
                 self._evict_idle_locked(force_one=True)
@@ -488,7 +514,8 @@ class MultiStreamEngine:
         tick_logprobs = logprobs[slot_ids].astype(np.float32, copy=False)
         by_slot = self._splitter.forward_batch(tick_logprobs, slot_ids, lasts)
         argmax = (tick_logprobs.argmax(axis=-1)
-                  if self.interim_transcripts and not self.interim_device_beam else None)
+                  if self.interim_transcripts and not self.interim_beam
+                  and not self.interim_device_beam else None)
         device_texts = None
         if self.interim_device_beam:
             device_texts = self._tick_device_beams(logprobs, ticking, by_slot, beam_reset)
@@ -510,6 +537,8 @@ class MultiStreamEngine:
                                         for f, p in zip(futs, phrases))
                     results[sid] = futs
                 elif phrases:
+                    # host decoders, and per-stream overrides: per phrase on
+                    # the pool
                     results[sid] = [self._decode_pool.submit(
                         self._decode, p, stream.decoder, stream.nbest) for p in phrases]
                 if device_texts is not None:
@@ -520,6 +549,18 @@ class MultiStreamEngine:
                         if text and text != stream.interim_sent:
                             stream.interim_sent = text
                             interims[sid] = text
+                elif self.interim_beam:
+                    if phrases or is_last:
+                        # Phrase boundary: the real decoder finalizes the
+                        # in-progress text; restart the carried search.
+                        stream.beam_reset = True
+                        stream.beam_gen += 1
+                        stream.beam_frames.clear()
+                        stream.interim_sent = ""
+                    else:
+                        stream.beam_frames.append(np.ascontiguousarray(tick_logprobs[k]))
+                    if not is_last:
+                        self._maybe_submit_interim_locked(sid, stream)
                 elif argmax is not None:
                     if phrases or is_last:
                         # Phrase boundary: restart the interim collapse.
@@ -549,6 +590,22 @@ class MultiStreamEngine:
             # The pool task dispatches the device call and resolves the
             # futures; the tick thread never waits for the decode.
             self._decode_pool.submit(self._decode_batch, batch_finals)
+        if self.interim_beam:
+            # Surface beam-interim texts completed since the last tick.
+            with self._interim_lock:
+                done_interims = self._interim_results
+                self._interim_results = {}
+            if done_interims:
+                with self._lock:
+                    for sid, (gen, text) in done_interims.items():
+                        stream = self._streams.get(sid)
+                        if stream is None or stream.beam_gen != gen:
+                            # a boundary finalized this phrase after the
+                            # worker stored its text: drop the stale interim
+                            continue
+                        if text and text != stream.interim_sent:
+                            stream.interim_sent = text
+                            interims[sid] = text
         self.last_interims = interims
 
         self.stats.ticks += 1
@@ -696,6 +753,39 @@ class MultiStreamEngine:
             out = self._evicted_since_poll
             self._evicted_since_poll = []
             return out
+
+    def _maybe_submit_interim_locked(self, sid: int, stream: _Stream) -> None:
+        """Kick the stream's carried host beam search on the decode pool (at
+        most one in-flight advance per stream; frames queue between tasks,
+        a boundary folds into the next task as a reset)."""
+        if stream.beam_task is not None and not stream.beam_task.done():
+            return
+        if not stream.beam_frames and not stream.beam_reset:
+            return
+        if stream.beam is None:
+            stream.beam = (stream.decoder or self.decoder).streaming()
+        beam = stream.beam
+        frames = stream.beam_frames
+        stream.beam_frames = []
+        do_reset, stream.beam_reset = stream.beam_reset, False
+        gen = stream.beam_gen
+
+        def work():
+            if do_reset:
+                beam.reset()
+            if frames:
+                beam.advance(np.concatenate(frames, axis=0))
+            text = beam.result()
+            # Stored on the worker (not a done-callback) so per-stream store
+            # order is task order; the tick re-checks the generation when it
+            # drains, as a boundary may land between this store and the next
+            # tick.
+            with self._interim_lock:
+                if stream.beam_gen == gen:
+                    self._interim_results[sid] = (gen, text)
+            return text
+
+        stream.beam_task = self._decode_pool.submit(work)
 
     def _word_times(self, logprob_phrase, text: str):
         if not self.word_timestamps:

@@ -14,7 +14,7 @@ Speaks the reference demo protocol:
 Every connection maps to a slot in the shared device arena and all live
 connections advance together in one batched step per tick.  A JSON text
 frame sets per-request hotwords and n-best; an engine that cannot serve
-them (greedy) answers with the JAX server's error event.  The bundled
+them (n-best on a greedy engine) answers with the JAX server's error event.  The bundled
 browser page of the JAX server is not served.  ``websockets`` is imported inside the
 functions that need it, so the engine and this module load without it.
 
