@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tone_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile-check]
+    python3 chip_smoke.py [--profile-check] [--phases kernels,bulk,...]
 
 Drives the port only — it imports neither ``jax`` nor ``tone_tpu`` — and
 prints one JSON line per phase:
@@ -9,7 +9,8 @@ prints one JSON line per phase:
 1. device   the card's name and power limit (nvidia-smi);
 2. build    every CUDA source under tone_tpu_torch/csrc, built in parallel;
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            the shapes the serving path gives it, with its time (CUDA
+            the shapes the serving path and the bulk full-sequence forward
+            (M = 16,640 and 33,280) give it, with its time (CUDA
             events, and its own device time from the profiler), the plain
             version's time, the card's bound for the same work, the share
             of the bound it reaches and, as a yardstick, cuBLAS's time for
@@ -40,12 +41,13 @@ prints one JSON line per phase:
             (``fused``), as the probing binary's own tables
             (``fused_probing``) and with hotwords (``fused_hotwords``); ms
             and device ms per call, launches per frame, idle share at every
-            bucket; the LM-free, LM and hotword variants held against the
-            same decoder on the CPU at every bucket, the fused ones at 64,
-            128 and 256 (equal top texts, best scores within 1e-3); with
-            ``--profile-check``, each profile also read through
-            ``key_averages()`` and each non-fused call profiled twice (adds
-            minutes); the LM once more as a KenLM probing binary (equal texts
+            bucket (the fused variants at 64 … 512, and also at 1024 and
+            2048 with ``--profile-check``); the LM-free, LM and hotword
+            variants held against the same decoder on the CPU at every
+            bucket, the fused ones at 64, 128 and 256 (equal top texts, best
+            scores within 1e-3); with ``--profile-check``, each profile also
+            read through ``key_averages()`` and each non-fused call profiled
+            twice (adds minutes); the LM once more as a KenLM probing binary (equal texts
             at every bucket); the agreement of the ARPA and probing fused
             texts, and of the fused top-1 with the port's host beam search
             (W=32, T=64);
@@ -65,8 +67,26 @@ prints one JSON line per phase:
             (the native C++ search, width 200, built by this run), carried
             host-beam interims and request hotwords on one stream: the
             native library must be built and used, every final equals a
-            second decode of its logprobs.
+            second decode of its logprobs;
+12. bulk    ``OfflineTranscriber`` over 16 utterances of speech-shaped
+            audio (the port's synthesizer, seeds 0-15, 4-60 s, 486 s in
+            all) as one batch of 16, with the chunk scan and with the
+            full-sequence forward: each run once to warm (its logprobs) and
+            once timed (audio s, wall s, RTFx, B1 launches per batch, peak
+            memory), then once profiled (device ms, idle share); the two
+            forwards' logprobs within 0.1, each against the CPU on the two
+            shortest utterances (logprobs within 0.1, texts compared);
+            ``batched_greedy_decode`` on the card equal to the host decoder;
+            every phrase's greedy text force-aligned on the card and the CPU
+            (paths equal in every (T, S) bucket, ms per bucket, word tuples
+            equal) and through ``word_timestamps=True``; ``evaluate_pipeline``
+            over a manifest of the utterances; ``python -m tone_tpu_torch
+            transcribe --batch-size 16 --json`` on two FLACs written by the
+            port's encoder.
 
+``--phases`` runs a subset after the build (for development; the kernel
+summary line needs the kernels, serve, fused_kernels, fused_step and bulk
+phases).
 Every phase line after ``device`` gives the phase's seconds as
 ``phase_s``.  Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
@@ -164,15 +184,21 @@ def phase_build() -> dict:
             "sass": sass}
 
 
+# B1's row counts: the bulk full-sequence forward's for 16 utterances of 60 s
+# (16 x 2080 frames full-rate, half that reduced), then the serving path's.
+BULK_MS = (33280, 16640)
+GLU_MS = BULK_MS + (2560, 1280, 640, 320, 160, 80, 37, 10)
+
+
 def glu_ff_cases(device):
-    """(m, av, p2) at F=1536, D=384 for the row counts of the serving path:
-    10*B in full-rate layers and 5*B in reduced ones, for B in 256, 64, 16,
-    plus ragged tails (37 and 10 rows)."""
+    """(m, av, p2) at F=1536, D=384 for the row counts of the bulk forward
+    and the serving path: 10*B in full-rate layers and 5*B in reduced ones,
+    for B in 256, 64, 16, plus ragged tails (37 and 10 rows)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
     f, d = 1536, 384
-    for m in (2560, 1280, 640, 320, 160, 80, 37, 10):
+    for m in GLU_MS:
         av = torch.randn(m, 2 * f, device=device, generator=gen).to(torch.bfloat16)
         w = (torch.randn(f, d, device=device, generator=gen) * 0.02).to(torch.bfloat16)
         b = torch.randn(d, device=device, generator=gen) * 0.01
@@ -577,6 +603,11 @@ BEAM_HOTWORDS = ["да", "нет", "привет мир", "колокол"]
 # takes longer than the card's calls and would push the script past half its
 # time limit.  The other variants are held against the CPU at every bucket.
 FUSED_CPU_BUCKETS = (64, 128, 256)
+# The fused variants' calls above 512 frames are timed only (no CPU
+# reference) and take about 100 s with their profiles: they run with
+# --profile-check, so that the default run, bulk phase included, stays
+# within 900 s on a slow host.
+FUSED_DEFAULT_BUCKETS = (64, 128, 256, 512)
 # key_averages() builds a Python object per event, which takes minutes for the
 # ~10^6 launches of a fused call at 2048 frames: above this many events only
 # the raw events are summed.
@@ -622,11 +653,12 @@ def beam_decoder(lm, device, hotwords=None, fusion=False):
     return dec
 
 
-def _beam_device_profile(fn, check: bool = False) -> dict:
+def _device_profile(fn, check: bool = False, top: int = 0) -> dict:
     """Device ms and kernel launches of one call, by torch.profiler: summed
     over the raw events and, with ``check``, read from the same profile
     through key_averages() as well where the call has at most
-    KEY_AVERAGES_MAX_EVENTS events."""
+    KEY_AVERAGES_MAX_EVENTS events; with ``top``, the ``top`` kernels by
+    device ms ([name, ms, launches])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -639,6 +671,14 @@ def _beam_device_profile(fn, check: bool = False) -> dict:
     if not events:
         raise AssertionError("the profiler saw no device time for the beam search")
     out = {"device_ms": sum(e.duration_ns() for e in events) / 1e6, "launches": len(events)}
+    if top:
+        by_name: dict[str, list] = {}
+        for e in events:
+            acc = by_name.setdefault(e.name()[:60], [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+        out["top_kernels"] = sorted(([k, *v] for k, v in by_name.items()),
+                                    key=lambda r: -r[1])[:top]
     if check and len(events) <= KEY_AVERAGES_MAX_EVENTS:
         avg = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         out["device_ms_key_averages"] = sum(e.self_device_time_total for e in avg) / 1e3
@@ -683,21 +723,21 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
         card = beam_decoder(lm, "cuda", hotwords, fusion)
         cpu = beam_decoder(lm, "cpu", hotwords, fusion)
         texts_by_variant[variant] = []
-        for t_pad in BEAM_BUCKETS:
+        for t_pad in (BEAM_BUCKETS if profile_check or not fusion else FUSED_DEFAULT_BUCKETS):
             lps = beam_logprobs(1000 * group + t_pad, BEAM_ROWS, t_pad)
             if t_pad == BEAM_BUCKETS[0]:
                 card.forward_batch_nbest(lps[:1], 1)   # first use of the stream
             t0 = time.perf_counter()
             got = card.forward_batch_nbest(lps, BEAM_NBEST)
             ms = (time.perf_counter() - t0) * 1e3
-            prof = _beam_device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST),
+            prof = _device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST),
                                         profile_check)
             case = {"variant": variant, "frames": t_pad, "rows": BEAM_ROWS, "ms": ms, **prof,
                     "launches_per_frame": prof["launches"] / t_pad,
                     "device_idle_share": 1.0 - prof["device_ms"] / ms}
             if profile_check and not fusion:
                 # the same call profiled again: how far the count moves
-                again = _beam_device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
+                again = _device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
                 case.update(launches_again=again["launches"], device_ms_again=again["device_ms"])
             texts_by_variant[variant].append([h[0][0] if h else "" for h in got])
             if fusion and t_pad not in FUSED_CPU_BUCKETS:
@@ -745,7 +785,9 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
             "device_lm": {"build_s": build_s, "table_rows": int(dev_arpa.keys1.shape[0]),
                           "probe": dev_arpa.probe, "edge_probe": dev_arpa.edge_probe,
                           "probing_table_rows": int(dev_probing.keys1.shape[0])},
-            "fused_cpu_buckets": list(FUSED_CPU_BUCKETS), "profile_check": profile_check,
+            "fused_cpu_buckets": list(FUSED_CPU_BUCKETS),
+            "fused_buckets": list(BEAM_BUCKETS if profile_check else FUSED_DEFAULT_BUCKETS),
+            "profile_check": profile_check,
             "fused_arpa_vs_probing_text_agreement": probing_agree,
             "fused_vs_host_beam_top1_agreement": host_agree,
             "ms": "host clock around one call (ends with the n-best read back); "
@@ -1000,6 +1042,264 @@ def phase_serve_host_beam() -> dict:
             "final_ms": [[len(d[0].logprobs), d[4], ms] for d, ms in zip(decoded, alone_ms)],
             "final_ms_fields": ["frames", "ms on the pool in the run", "ms alone"]}
 
+# The bulk cell: 16 utterances of speech-shaped audio (the port's
+# synthesize_speech_like, seeds 0-15) of these many seconds, about 8 minutes,
+# transcribed as one batch.
+BULK_SECONDS = (4, 6, 8, 12, 16, 20, 24, 28, 32, 36, 40, 44, 48, 52, 56, 60)
+BULK_BATCH = 16
+BULK_CPU_ROWS = 2       # the utterances (4 and 6 s) also run on the CPU
+BULK_REFS = ["да нет", "привет мир", "спасибо до свидания", "алло слушаю"]
+BULK_DEVICE = "cuda"
+
+
+def bulk_corpus() -> list[np.ndarray]:
+    """The bulk cell's utterances: phrases of about 2.5 s with the
+    synthesizer's 0.8 s pauses, filling each utterance's length."""
+    from tone_tpu_torch.audio.examples import synthesize_speech_like
+
+    audios = []
+    for seed, total in enumerate(BULK_SECONDS):
+        n = max(1, round((total - 0.5) / 3.3))
+        phrase = (total - 0.5) / n - 0.8
+        audios.append(synthesize_speech_like(seed, (phrase,) * n).astype(np.int32))
+    return audios
+
+
+def _phrases(phrases) -> list:
+    return [(p.text, p.start_time, p.end_time) for p in phrases]
+
+
+def _bulk_forward(name, transcriber, audios, frames) -> tuple[dict, list, list]:
+    """One forward of the bulk cell: a warm run (the logprobs), a timed run
+    (the phrases) with its kernel launches and peak memory, and a profiled
+    run for device time."""
+    import torch
+
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    logprobs = transcriber.logprobs(audios)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    glu_ff2.launches = 0
+    t0 = time.perf_counter()
+    phrases = transcriber.transcribe(audios)
+    wall = time.perf_counter() - t0
+    launches = glu_ff2.launches
+    peak = torch.cuda.max_memory_allocated()
+    chunk = transcriber.config.audio_chunk_samples
+    pad = transcriber.config.padding
+    n_chunks = -(-max(-(-(len(a) + 2 * pad) // chunk) for a in audios) // 8) * 8
+    want = 32 * (1 if transcriber.use_offline_forward else n_chunks)
+    if launches != want:
+        raise AssertionError(f"bulk {name}: {launches} GLU launches, expected {want}")
+    prof = _device_profile(lambda: transcriber.transcribe(audios), top=6)
+    audio_s = sum(len(a) for a in audios) / 8000
+    for k, (lp, a) in enumerate(zip(logprobs, audios)):
+        if lp.shape[1] != 35 or not np.isfinite(lp).all() \
+                or lp.shape[0] != -(-(len(a) + 2 * pad) // chunk) * frames:
+            raise AssertionError(f"bulk {name} utterance {k}: logprobs {lp.shape} or non-finite")
+    for k, ps in enumerate(phrases):
+        times = [t for p in ps for t in (p.start_time, p.end_time)]
+        if times != sorted(times) or any(t < 0 for t in times):
+            raise AssertionError(f"bulk {name} utterance {k}: phrase times {times}")
+    return ({"forward": name, "audio_s": audio_s, "wall_s": wall, "rtfx": audio_s / wall,
+             "chunks_per_row": n_chunks, "glu_launches_per_batch": launches,
+             "device_ms": prof["device_ms"], "device_launches": prof["launches"],
+             "device_idle_share": 1.0 - prof["device_ms"] / (wall * 1e3),
+             "top_kernels": prof["top_kernels"],
+             "peak_memory_bytes": peak, "phrases": sum(len(p) for p in phrases)},
+            logprobs, phrases)
+
+
+def phase_bulk() -> dict:
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tone_tpu_torch.audio.flac_write import encode_flac
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoder import GreedyCTCDecoder
+    from tone_tpu_torch.eval import evaluate_pipeline
+    from tone_tpu_torch.offline import OfflineTranscriber
+    from tone_tpu_torch.ops import align_device
+    from tone_tpu_torch.ops.greedy import batched_greedy_decode
+    from tone_tpu_torch.splitter import StreamingLogprobSplitter
+    from tone_tpu_torch.training.wer import word_error_rate
+
+    cfg = ToneConfig()
+    frames = cfg.encoder.chunk_size
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    t0 = time.perf_counter()
+    audios = bulk_corpus()
+    corpus_s = time.perf_counter() - t0
+
+    def transcriber(device, **kw):
+        return OfflineTranscriber(variables, cfg, batch_size=BULK_BATCH, device=device, **kw)
+
+    scan, full = transcriber(BULK_DEVICE), transcriber(BULK_DEVICE, use_offline_forward=True)
+    runs, lps, texts = [], {}, {}
+    for name, tr in (("scan", scan), ("offline_forward", full)):
+        run, lps[name], phrases = _bulk_forward(name, tr, audios, frames)
+        runs.append(run)
+        texts[name] = [_phrases(p) for p in phrases]
+    forward_err = max(float(np.abs(a - b).max()) for a, b in zip(lps["scan"],
+                                                                   lps["offline_forward"]))
+    if not forward_err <= STEP_TOL:
+        raise AssertionError(f"bulk scan vs full-sequence forward on the card: "
+                             f"{forward_err} > {STEP_TOL}")
+    texts_equal = sum(a == b for a, b in zip(texts["scan"], texts["offline_forward"]))
+
+    # Card against CPU, both forwards, on the two shortest utterances.
+    short = audios[:BULK_CPU_ROWS]
+    cpu_rows = []
+    for name, kw in (("scan", {}), ("offline_forward", {"use_offline_forward": True})):
+        cpu = transcriber("cpu", **kw)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(lps[name], cpu.logprobs(short)))
+        if not err <= STEP_TOL:
+            raise AssertionError(f"bulk {name}, card vs CPU: {err} > {STEP_TOL}")
+        cpu_texts = [_phrases(p) for p in cpu.transcribe(short)]
+        cpu_rows.append({"forward": name, "max_abs_err": err,
+                         "texts_equal": cpu_texts == texts[name][:BULK_CPU_ROWS],
+                         "card": [[p[0][:40] for p in u] for u in texts[name][:BULK_CPU_ROWS]],
+                         "cpu": [[p[0][:40] for p in u] for u in cpu_texts]})
+
+    # Greedy collapse on the card against the host decoder, whole utterances.
+    lens = [lp.shape[0] for lp in lps["offline_forward"]]
+    padded = np.zeros((len(lens), max(lens), 35), np.float32)
+    for k, lp in enumerate(lps["offline_forward"]):
+        padded[k, :len(lp)] = lp
+    greedy = batched_greedy_decode(torch.from_numpy(padded).to(BULK_DEVICE), lens)
+    host = GreedyCTCDecoder()
+    if greedy != [host.forward(lp) for lp in lps["offline_forward"]]:
+        raise AssertionError("batched greedy decode on the card differs from the host decoder")
+
+    # Forced alignment of every phrase's greedy text: card against CPU, by
+    # bucket, and the word tuples of align_words_batch.
+    splitter = StreamingLogprobSplitter()
+    phrase_lps = [np.ascontiguousarray(p.logprobs) for lp in lps["offline_forward"]
+                  for p in splitter.forward(lp, None, is_last=True)[0]]
+    phrase_texts = [host.forward(lp) for lp in phrase_lps]
+    exts, groups = align_device._bucket_groups(phrase_lps, phrase_texts)
+    buckets = []
+    for (t_pad, s_pad), idxs in sorted(groups.items()):
+        staged = align_device._stage_bucket(phrase_lps, exts, idxs, t_pad, s_pad)
+        paths = {}
+        for device in ("card", "cpu"):
+            args = [torch.from_numpy(a).to(BULK_DEVICE if device == "card" else "cpu")
+                    for a in staged]
+            align_device._viterbi_path(*args)   # first call: warm
+            t0 = time.perf_counter()
+            path, _ = align_device._viterbi_path(*args)
+            paths[device] = path.cpu().numpy()   # the copy waits for the card
+            paths[device + "_ms"] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(paths["card"], paths["cpu"]):
+            raise AssertionError(f"Viterbi paths differ, card vs CPU, bucket {(t_pad, s_pad)}")
+        buckets.append({"frames": t_pad, "states": s_pad, "rows": len(idxs),
+                        "ms": paths["card_ms"], "cpu_ms": paths["cpu_ms"]})
+    words_card = align_device.align_words_batch(phrase_lps, phrase_texts, device=BULK_DEVICE)
+    if words_card != align_device.align_words_batch(phrase_lps, phrase_texts, device="cpu"):
+        raise AssertionError("align_words_batch: word tuples differ, card vs CPU")
+    timed = transcriber(BULK_DEVICE, use_offline_forward=True,
+                        word_timestamps=True).transcribe(audios)
+    if any((p.words is None) != (not p.text.split()) for ps in timed for p in ps):
+        raise AssertionError("word_timestamps: a phrase with text has no word times")
+
+    # Corpus evaluation over a manifest of the utterances, one at a time
+    # through the full-sequence forward; the WER recomputed from its outputs.
+    class Recorded:
+        def __init__(self):
+            self.hyps = []
+
+        def forward_offline(self, audio):
+            phrases = full.forward_offline(audio)
+            self.hyps.append(" ".join(p.text for p in phrases if p.text))
+            return phrases
+
+    refs = [BULK_REFS[k % len(BULK_REFS)] for k in range(len(audios))]
+    recorded = Recorded()
+    result = evaluate_pipeline(recorded, [{"audio": a, "text": r} for a, r in zip(audios, refs)])
+    if result.n_utterances != len(audios) \
+            or abs(result.audio_seconds - runs[0]["audio_s"]) > 1e-6 \
+            or result.wer != word_error_rate(recorded.hyps, refs):
+        raise AssertionError(f"evaluate_pipeline: {result}")
+
+    # The CLI: two FLACs (written by the port's encoder) through
+    # `python -m tone_tpu_torch transcribe --batch-size 16 --json`, against
+    # the same batch transcribed here.
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [str(Path(tmp) / f"utt{k}.flac") for k in range(BULK_CPU_ROWS)]
+        for path, a in zip(files, short):
+            encode_flac(path, a.astype(np.int16), 8000)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tone_tpu_torch", "transcribe",
+                               "--batch-size", str(BULK_BATCH), "--json", "--device", BULK_DEVICE,
+                               *files],
+                              cwd=repo, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"transcribe CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    records = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    got = [[(p["text"], p["start_time"], p["end_time"]) for p in r["phrases"]]
+           for r in records]
+    if [r["file"] for r in records] != files or not all(got) or any(
+            [t for p in u for t in p[1:]] != sorted(t for p in u for t in p[1:]) for u in got):
+        raise AssertionError(f"transcribe CLI: {proc.stdout[-2000:]}")
+    # The same batch here: equal texts unless the process's numerics differ.
+    cli_equal = got == [_phrases(p) for p in scan.transcribe(short)]
+    return {"phase": "bulk", "config": "ToneConfig() bf16", "utterances": len(audios),
+            "seconds": list(BULK_SECONDS), "batch": BULK_BATCH, "corpus_s": corpus_s,
+            "runs": runs, "max_abs_err_scan_vs_offline_forward": forward_err,
+            "tol": STEP_TOL, "texts_equal_scan_vs_offline_forward": texts_equal / len(audios),
+            "cpu": cpu_rows, "greedy_texts_equal": True,
+            "viterbi": {"phrases": len(phrase_lps), "buckets": buckets},
+            "eval": {"wer": result.wer, "utterances": result.n_utterances,
+                     "audio_seconds": result.audio_seconds,
+                     "wall_seconds": result.wall_seconds, "rtfx": result.rtfx},
+            "cli": {"files": len(files), "seconds": cli_s, "texts_equal_in_process": cli_equal}}
+
+
+PHASES = ("kernels", "step", "serve", "fused_kernels", "fused_step", "beam_decode",
+          "serve_beam", "serve_fused", "serve_host_beam", "bulk")
+
+
+def kernel_summary(out: dict) -> dict:
+    """The line of every kernel: its launches on its main paths, errors,
+    times and bounds."""
+    kernels, serve, fused, fused_step, bulk = (
+        out[k] for k in ("kernels", "serve", "fused_kernels", "fused_step", "bulk"))
+    # The serve phase is the main path: its full-rate layers give M = 10 * slots.
+    main_m = SERVE_SLOTS * 10
+    case = next(c for c in kernels["cases"] if c["m"] == main_m)
+    # The fused step is B2's main path: its 16 layers at B = 64, so B2's
+    # times are the mean per launch over a step's mix of layer kinds.
+    step_cases = [(c, FUSED_KINDS[c["kind"]][1]) for c in fused["cases"] if c["batch"] == 64]
+    per_launch = {key: sum(c[key] * n for c, n in step_cases) / 16
+                  for key in ("ms", "plain_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "gemm_ms")
+    return {"kernels": [{
+        "name": "glu_ff2", "route": "cuda", "source": "tone_tpu_torch/csrc/glu_ff.cu",
+        "replaces": "tone_tpu/ops/glu_ff.py:60", "launches": serve["glu_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
+        "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "bound_share": case["bound_share"], "library_ms": None,
+        "event_ms": case["event_ms"], "gemm_ms": case["gemm_ms"], "m": main_m,
+        "bulk_launches_per_batch": {r["forward"]: r["glu_launches_per_batch"]
+                                    for r in bulk["runs"]},
+        "bulk_m": [{"m": c["m"], **{k: c[k] for k in keys}}
+                   for c in kernels["cases"] if c["m"] in BULK_MS]}, {
+        "name": "fused_conformer_layer", "route": "cuda",
+        "source": "tone_tpu_torch/csrc/fused_layer.cu",
+        "replaces": "tone_tpu/ops/fused_layer.py:445",
+        "launches": fused_step["fused_launches"],
+        "max_abs_err": max(v for c in fused["cases"] for v in c["max_abs_err"].values()),
+        **per_launch,
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            c["bound_ms"] * n for c, n in step_cases if c["bound_by"] == by)),
+        "library_ms": None, "shape": "mean per launch over the 16 layers of a B=64 step"}]}
+
 
 def run_phase(fn, *args) -> dict:
     """Run one phase, add its seconds as ``phase_s`` and print its line."""
@@ -1017,9 +1317,17 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--profile-check", action="store_true",
-                        help="beam_decode: also read each profile through key_averages() "
+                        help="beam_decode: also run the fused variants at 1024 and 2048 "
+                             "frames, read each profile through key_averages() "
                              "and profile each non-fused call twice")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after the build (default: "
+                             "all; the kernel summary line needs kernels, serve, "
+                             "fused_kernels, fused_step and bulk)")
     args = parser.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1033,40 +1341,12 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
     run_phase(phase_build)
-    kernels = run_phase(phase_kernels)
-    run_phase(phase_step)
-    serve = run_phase(phase_serve)
-    fused = run_phase(phase_fused_kernels)
-    fused_step = run_phase(phase_fused_step)
-    run_phase(phase_beam_decode, args.profile_check)
-    run_phase(phase_serve_beam)
-    run_phase(phase_serve_fused)
-    run_phase(phase_serve_host_beam)
-
-    # The serve phase is the main path: its full-rate layers give M = 10 * slots.
-    main_m = SERVE_SLOTS * 10
-    case = next(c for c in kernels["cases"] if c["m"] == main_m)
-    # The fused step is B2's main path: its 16 layers at B = 64, so B2's
-    # times are the mean per launch over a step's mix of layer kinds.
-    step_cases = [(c, FUSED_KINDS[c["kind"]][1]) for c in fused["cases"] if c["batch"] == 64]
-    per_launch = {key: sum(c[key] * n for c, n in step_cases) / 16
-                  for key in ("ms", "plain_ms", "bound_ms")}
-    emit({"kernels": [{
-        "name": "glu_ff2", "route": "cuda", "source": "tone_tpu_torch/csrc/glu_ff.cu",
-        "replaces": "tone_tpu/ops/glu_ff.py:60", "launches": serve["glu_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
-        "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-        "bound_by": case["bound_by"], "bound_share": case["bound_share"], "library_ms": None,
-        "event_ms": case["event_ms"], "gemm_ms": case["gemm_ms"], "m": main_m}, {
-        "name": "fused_conformer_layer", "route": "cuda",
-        "source": "tone_tpu_torch/csrc/fused_layer.cu",
-        "replaces": "tone_tpu/ops/fused_layer.py:445",
-        "launches": fused_step["fused_launches"],
-        "max_abs_err": max(v for c in fused["cases"] for v in c["max_abs_err"].values()),
-        **per_launch,
-        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-            c["bound_ms"] * n for c, n in step_cases if c["bound_by"] == by)),
-        "library_ms": None, "shape": "mean per launch over the 16 layers of a B=64 step"}]})
+    out = {}
+    for name in phases:
+        fn = globals()["phase_" + name]
+        out[name] = run_phase(fn, args.profile_check) if name == "beam_decode" else run_phase(fn)
+    if {"kernels", "serve", "fused_kernels", "fused_step", "bulk"} <= set(out):
+        emit(kernel_summary(out))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -46,6 +46,26 @@ def tiny_variables(jax_config, torch_config, seed: int = 0):
     return jv, tv
 
 
+def tiny_variables_with_stats(jax_config, torch_config, seed: int = 0):
+    """``tiny_variables`` with random BatchNorm running statistics (a fresh
+    model's are the identity), so that a forward that ignored them would
+    differ."""
+    jv, _ = tiny_variables(jax_config, torch_config, seed)
+    rng = np.random.default_rng(seed)
+
+    def stats(tree):
+        if isinstance(tree, dict) and set(tree) == {"mean", "var"}:
+            return {"mean": 0.1 * rng.standard_normal(tree["mean"].shape).astype(np.float32),
+                    "var": (0.5 + rng.random(tree["var"].shape)).astype(np.float32)}
+        if isinstance(tree, dict):
+            return {k: stats(v) for k, v in tree.items()}
+        return type(tree)(stats(v) for v in tree)
+
+    jv = {"params": jax.tree.map(np.asarray, jv["params"]),
+          "batch_stats": stats(jax.tree.map(np.asarray, jv["batch_stats"]))}
+    return jv, from_jax_variables(jv, torch_config, "cpu")
+
+
 def audio(n_samples: int, batch: int | None = None, seed: int = 0) -> np.ndarray:
     shape = (n_samples,) if batch is None else (batch, n_samples)
     return np.random.default_rng(seed).integers(-20000, 20000, shape).astype(np.int32)

@@ -23,7 +23,9 @@ from tone_tpu_torch.ops.glu_ff import PLAN_HEADER, kernel_constants, plan_glu_ff
 
 C = kernel_constants()
 H100_SMS = 132
-MS = (1, 10, 37, 80, 160, 320, 640, 1280, 2560, 8448)  # 8448: no split at F = 1536
+# 8448: no split at F = 1536; 16640 and 33280: the bulk full-sequence forward
+# of 16 utterances of 60 s (16 x 1040 reduced and 16 x 2080 full-rate rows)
+MS = (1, 10, 37, 80, 160, 320, 640, 1280, 2560, 8448, 16640, 33280)
 WIDTHS = ((1536, 384), (128, 64), (256, 128))  # (F, D): the main path's, then the tiny tests'
 SMEM_PER_BLOCK = 232448  # the most dynamic shared memory an H100 block may use
 
@@ -91,6 +93,16 @@ def test_main_path_plans():
     assert got == {80: (False, (9, 8)), 160: (False, (15, 8)), 320: (False, (30, 8)),
                    640: (False, (60, 4)), 1280: (True, (60, 4)), 2560: (True, (120, 2))}
     assert plan_glu_ff(8448, 1536, 384, H100_SMS).grid == (396, 1)
+
+
+def test_bulk_forward_plans():
+    """The bulk full-sequence forward's row counts take the big tile with no
+    depth split: 260 x 3 and 520 x 3 tiles, each M a whole number of
+    64-row tiles (no ragged row tile)."""
+    for m, row_tiles in ((16640, 260), (33280, 520)):
+        plan = plan_glu_ff(m, 1536, 384, H100_SMS)
+        assert plan.big and (plan.row_tiles, plan.col_tiles, plan.split) == (row_tiles, 3, 1)
+        assert plan.grid == (row_tiles * 3, 1) and m % plan.bm == 0
 
 
 def test_planner_reads_the_kernel_header():

@@ -38,10 +38,11 @@ def _case(device, m, f=F, d=D, seed=0):
 
 # The step's and the serving path's row counts (the small tile below 1024
 # rows, the big one from there, depth splits 2-8), ragged tails, 8448 rows
-# (one block per output tile: no split), and the tiny widths of the CPU
-# tests (D = 64 is one ragged column tile).
+# (one block per output tile: no split), the bulk full-sequence forward's
+# 16 x 2080 and 16 x 1040 rows, and the tiny widths of the CPU tests (D = 64
+# is one ragged column tile).
 @pytest.mark.parametrize("f, d", [(F, D), (128, 64), (256, 128)])
-@pytest.mark.parametrize("m", [8448, 2560, 1280, 640, 320, 160, 80, 37, 10, 1])
+@pytest.mark.parametrize("m", [33280, 16640, 8448, 2560, 1280, 640, 320, 160, 80, 37, 10, 1])
 def test_kernel_matches_plain(cuda, m, f, d):
     av, p2 = _case(cuda, m, f=f, d=d, seed=m)
     before = glu_ff2.launches
@@ -562,3 +563,100 @@ def test_fused_decoder_on_card_matches_cpu(cuda, tmp_path, probing):
         got, want = card.forward_batch_nbest(phrases, 4, hot), cpu.forward_batch_nbest(phrases, 4, hot)
         _assert_nbest_close(got, want)
     assert card._cuda_stream is not None
+
+
+# ---------------------------------------------------------------------------
+# The bulk path: the full-sequence forward, the transcriber, greedy collapse
+# and forced alignment, card against CPU.
+# ---------------------------------------------------------------------------
+
+from tone_tpu_torch.config import BLANK_ID, LABELS  # noqa: E402
+from tone_tpu_torch.core.model import apply_offline  # noqa: E402
+from tone_tpu_torch.offline import OfflineTranscriber  # noqa: E402
+from tone_tpu_torch.ops import align_device  # noqa: E402
+from tone_tpu_torch.ops.greedy import greedy_collapse_tokens  # noqa: E402
+
+
+def _tiny_bf16():
+    cfg = ToneConfig(encoder=EncoderConfig(**TINY))
+    gen = torch.Generator().manual_seed(1)
+    return cfg, _perturbed(init_model_params(gen, cfg), gen)
+
+
+@pytest.mark.parametrize("blocked", [True, False])
+def test_tiny_apply_offline_on_card_matches_cpu(cuda, blocked):
+    """The bf16 full-sequence forward (B1 on the card, its plain version on
+    the CPU) with ragged lengths, within the bf16 step's 0.1."""
+    from tone_tpu_torch.acoustic import cast_params_for_inference
+    from tone_tpu_torch.bridge import to_device
+
+    cfg, variables = _tiny_bf16()
+    cast = cast_params_for_inference(variables, cfg)
+    wav = torch.from_numpy(np.random.default_rng(2).integers(
+        -20000, 20000, (3, 2400 * 5 + 313)).astype(np.int32))
+    lens = torch.tensor([wav.shape[1], 9000, 3000], dtype=torch.int32)
+    before = glu_ff2.launches
+    lg, ng, _ = apply_offline(to_device(cast, cuda), cfg, wav.to(cuda), lens.to(cuda),
+                              blocked_attention=blocked)
+    torch.cuda.synchronize()
+    assert glu_ff2.launches == before + 2 * cfg.encoder.n_layers
+    lc, nc, _ = apply_offline(cast, cfg, wav, lens, blocked_attention=blocked)
+    assert ng.cpu().tolist() == nc.tolist()
+    for row, n in enumerate(nc.tolist()):
+        assert (lg[row, :n].cpu() - lc[row, :n]).abs().max().item() < 0.1
+
+
+@pytest.mark.parametrize("offline_forward", [False, True])
+def test_tiny_transcriber_on_card_matches_cpu(cuda, offline_forward):
+    cfg, variables = _tiny_bf16()
+    rng = np.random.default_rng(3)
+    audios = [rng.integers(-20000, 20000, n).astype(np.int32) for n in (5000, 7200, 1200)]
+    card, cpu = (OfflineTranscriber(variables, cfg, batch_size=2, device=dev,
+                                    use_offline_forward=offline_forward)
+                 for dev in (cuda, "cpu"))
+    for g, c in zip(card.logprobs(audios), cpu.logprobs(audios)):
+        assert g.shape == c.shape and np.abs(g - c).max() < 0.1
+    phrases = card.transcribe(audios)
+    assert len(phrases) == 3 and all(phrases)
+
+
+def _tied_logprobs(seed, b=4, t=300):
+    """Logprobs on a coarse grid with whole flat frames: exact ties."""
+    rng = np.random.default_rng(seed)
+    lp = np.round(rng.normal(0.0, 1.0, (b, t, len(LABELS) + 1)) * 2) / 2
+    lp[:, ::7] = -1.0
+    lp[:, 3::11, BLANK_ID] = lp[:, 3::11].max(-1)
+    return torch.from_numpy(lp.astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_greedy_collapse_on_card_matches_cpu(cuda, seed):
+    lp = _tied_logprobs(seed)
+    tg, kg = greedy_collapse_tokens(lp.to(cuda))
+    tc, kc = greedy_collapse_tokens(lp)
+    assert torch.equal(tg.cpu(), tc) and torch.equal(kg.cpu(), kc)
+
+
+def test_viterbi_paths_on_card_match_cpu(cuda):
+    """Every bucket's best paths equal the CPU's, element for element, on
+    random phrases, a flat (all-tie) phrase and tied grid values."""
+    from tone_tpu_torch.decoder import GreedyCTCDecoder
+
+    rng = np.random.default_rng(4)
+    lps = []
+    for t in (12, 30, 75, 140, 300, 700):
+        logits = rng.normal(0, 2.5, (t, len(LABELS) + 1))
+        lps.append((logits - np.log(np.exp(logits).sum(-1, keepdims=True))).astype(np.float32))
+    lps += [np.full((40, len(LABELS) + 1), -np.log(35.0), np.float32),
+            _tied_logprobs(5, b=1, t=90)[0].numpy()]
+    host = GreedyCTCDecoder()
+    texts = [host.forward(lp) for lp in lps[:-2]] + ["аа бв", host.forward(lps[-1])]
+    exts, groups = align_device._bucket_groups(lps, texts)
+    for (t_pad, s_pad), idxs in groups.items():
+        staged = align_device._stage_bucket(lps, exts, idxs, t_pad, s_pad)
+        pg, sg = align_device._viterbi_path(*(torch.from_numpy(a).to(cuda) for a in staged))
+        pc, sc = align_device._viterbi_path(*(torch.from_numpy(a) for a in staged))
+        assert torch.equal(pg.cpu(), pc)
+        assert torch.allclose(sg.cpu(), sc, rtol=1e-6)
+    assert align_device.align_words_batch(lps, texts, device=cuda) == \
+        align_device.align_words_batch(lps, texts, device="cpu")

@@ -19,20 +19,32 @@ __all__ = [
     "DecoderType",
     "GreedyCTCDecoder",
     "MultiStreamEngine",
+    "OfflineTranscriber",
     "StreamingCTCModel",
     "StreamingCTCPipeline",
     "TextPhrase",
     "ToneConfig",
+    "read_audio",
+    "read_example_audio",
+    "read_stream_audio",
+    "read_stream_example_audio",
+    "word_error_rate",
 ]
 
 _LAZY = {
     "DecoderType": ("tone_tpu_torch.decoder", "DecoderType"),
     "GreedyCTCDecoder": ("tone_tpu_torch.decoder", "GreedyCTCDecoder"),
     "MultiStreamEngine": ("tone_tpu_torch.runtime.engine", "MultiStreamEngine"),
+    "OfflineTranscriber": ("tone_tpu_torch.offline", "OfflineTranscriber"),
     "StreamingCTCModel": ("tone_tpu_torch.acoustic", "StreamingCTCModel"),
     "StreamingCTCPipeline": ("tone_tpu_torch.pipeline", "StreamingCTCPipeline"),
     "TextPhrase": ("tone_tpu_torch.pipeline", "TextPhrase"),
     "ToneConfig": ("tone_tpu_torch.config", "ToneConfig"),
+    "read_audio": ("tone_tpu_torch.audio", "read_audio"),
+    "read_example_audio": ("tone_tpu_torch.audio", "read_example_audio"),
+    "read_stream_audio": ("tone_tpu_torch.audio", "read_stream_audio"),
+    "read_stream_example_audio": ("tone_tpu_torch.audio", "read_stream_example_audio"),
+    "word_error_rate": ("tone_tpu_torch.training.wer", "word_error_rate"),
 }
 
 

@@ -1,5 +1,6 @@
-"""Streaming Conformer encoder (port of ``tone_tpu/core/encoder.py``,
-streaming half; the offline/training half waits for the training slice).
+"""Conformer encoder (port of ``tone_tpu/core/encoder.py``): the streaming
+step and the full-sequence offline forward (inference; training waits for
+its slice).
 
 Architecture (the reference's ToneConfig contract):
   * conv subsampling x3 in time with carried input tails;
@@ -21,6 +22,7 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from tone_tpu_torch.config import EncoderConfig
 from tone_tpu_torch.core import layers as L
@@ -161,14 +163,25 @@ def _feed_forward(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _conv_module(p: Params, bn_stats: Params, x: torch.Tensor,
-                 conv_state: torch.Tensor, kernel_size: int,
-                 dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """pointwise -> GLU -> causal depthwise (over conv_state ‖ chunk) -> BN
-    -> SiLU -> pointwise, feature-last.  Returns (output, next conv_state)."""
+                 conv_state: torch.Tensor | None, kernel_size: int, dtype,
+                 pad_mask: torch.Tensor | None = None,
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """pointwise -> GLU -> causal depthwise (over conv_state ‖ x) -> BN
+    -> SiLU -> pointwise, feature-last.
+
+    ``conv_state`` None (offline) pads with kernel-1 zeros instead, the
+    same as a zero state; ``pad_mask`` (B, T), True on padding frames
+    (offline only), zeroes those frames before the depthwise conv.
+    Returns (output, next conv_state or None)."""
     d = x.shape[-1]
     y = L.glu(L.linear(p["pw1"], x, dtype), dim=-1)  # (B, T, D)
-    padded = torch.cat([conv_state.to(y.dtype), y], dim=1)
-    next_state = padded[:, -(kernel_size - 1):, :]
+    if pad_mask is not None:
+        y = y.masked_fill(pad_mask[:, :, None], 0.0)
+    if conv_state is None:
+        padded, next_state = F.pad(y, (0, 0, kernel_size - 1, 0)), None
+    else:
+        padded = torch.cat([conv_state.to(y.dtype), y], dim=1)
+        next_state = padded[:, -(kernel_size - 1):, :]
     y = L.conv1d_nhc(p["dw"], padded, stride=1, groups=d, compute_dtype=dtype)
     y = L.batchnorm(p["bn"], bn_stats, y, channel_axis=2)
     y = L.linear(p["pw2"], L.silu(y), dtype)
@@ -176,19 +189,23 @@ def _conv_module(p: Params, bn_stats: Params, x: torch.Tensor,
 
 
 def _subsampling(p: Params, stats: Params, cfg: EncoderConfig, feats: torch.Tensor,
-                 sub_states: tuple[torch.Tensor, torch.Tensor],
-                 dtype) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Conv subsampling (x3 in time) with carried input tails.
+                 sub_states: tuple[torch.Tensor, torch.Tensor] | None,
+                 dtype) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """Conv subsampling (x3 in time) with carried input tails; ``sub_states``
+    None (offline) prepends zero tails, the same as zero states.
 
-    Returns ((B, T_out, d_model), next tails)."""
+    Returns ((B, T_out, d_model), next tails or None)."""
     sub_lens = cfg.subsampling_state_lens
     x = L.rmsnorm(p["pre_norm"], feats.to(dtype))
     x = x[:, None, :, :]  # (B, 1, T, F) — NCHW with time as H
 
     new_states = []
     for i, (conv_name, bn_name) in enumerate((("conv1", "bn1"), ("conv2", "bn2"))):
-        x = torch.cat([sub_states[i].to(x.dtype), x], dim=2)
-        new_states.append(x[:, :, -sub_lens[i]:, :])
+        if sub_states is None:
+            x = F.pad(x, (0, 0, sub_lens[i], 0))
+        else:
+            x = torch.cat([sub_states[i].to(x.dtype), x], dim=2)
+            new_states.append(x[:, :, -sub_lens[i]:, :])
         x = L.conv2d(p[conv_name], x, cfg.subsampling_strides[i], dtype)
         x = L.silu(L.batchnorm(p[bn_name], stats[bn_name], x, channel_axis=1))
 
@@ -196,15 +213,21 @@ def _subsampling(p: Params, stats: Params, cfg: EncoderConfig, feats: torch.Tens
     b, c, t_out, f_out = x.shape
     x = x.transpose(1, 2).reshape(b, t_out, c * f_out)
     x = L.rmsnorm(p["out_norm"], L.linear(p["out"], x, dtype))
-    return x, (new_states[0], new_states[1])
+    return x, (tuple(new_states) if sub_states is not None else None)
 
 
-def _temporal_reduction(p: Params, x: torch.Tensor, red_state: torch.Tensor,
-                        cfg: EncoderConfig, dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal depthwise stride-2 conv (x4 channels) + pointwise."""
+def _temporal_reduction(p: Params, x: torch.Tensor, red_state: torch.Tensor | None,
+                        cfg: EncoderConfig, dtype) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Causal depthwise stride-2 conv (x4 channels) + pointwise.  ``red_state``
+    None (offline) pads k - r zeros on the left and zeros on the right up to
+    a multiple of r."""
     k, r = cfg.reduction_kernel_size, cfg.reduction_factor
-    padded = torch.cat([red_state.to(x.dtype), x], dim=1)
-    next_state = padded[:, -(k - r):, :]
+    if red_state is None:
+        right = (r - x.shape[1] % r) % r
+        padded, next_state = F.pad(x, (0, 0, k - r, right)), None
+    else:
+        padded = torch.cat([red_state.to(x.dtype), x], dim=1)
+        next_state = padded[:, -(k - r):, :]
     y = L.conv1d_nhc(p["dw"], padded, stride=r, groups=cfg.d_model, compute_dtype=dtype)
     return L.linear(p["pw"], y, dtype), next_state  # (B, T_red, 4D) -> (B, T_red, D)
 
@@ -222,11 +245,17 @@ def _temporal_upsample(x: torch.Tensor, residual: torch.Tensor, factor: int) -> 
 def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
                      cfg: EncoderConfig, mhsa_window: torch.Tensor | None,
                      k_offset: int, att_mask: torch.Tensor | None,
-                     cached_scores: torch.Tensor | None, conv_state: torch.Tensor,
-                     dtype):
+                     cached_scores: torch.Tensor | None, conv_state: torch.Tensor | None,
+                     dtype, pad_mask: torch.Tensor | None = None,
+                     blocked: tuple[int, int, torch.Tensor] | None = None):
     """One Macaron Conformer block.
 
-    Returns (output, scores, new_mhsa_window or None, new_conv_state)."""
+    ``blocked`` = (chunk, left_context, lengths) routes the attention through
+    the block-diagonal offline path (``layers.mhsa_blocked``) instead of a
+    masked (T, T) product; ``att_mask`` is then None.  ``pad_mask`` and
+    ``conv_state=None`` are the offline conv module's (``_conv_module``).
+
+    Returns (output, scores, new_mhsa_window or None, new_conv_state or None)."""
     residual = x + _feed_forward(p["ff1"], L.rmsnorm(p["norm_ff1"], x), dtype) * 0.5
 
     a_in = L.rmsnorm(p["norm_att"], residual)
@@ -237,14 +266,21 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
     else:
         kv = a_in
         new_window = None
-    y, scores = L.mhsa(p["att"], a_in, kv, n_heads=cfg.n_heads, rope_dim=cfg.rope_dim,
-                       k_offset=k_offset, mask=att_mask, cached_scores=cached_scores,
-                       compute_dtype=dtype)
+    if blocked is not None:
+        chunk, left_context, lengths = blocked
+        y, scores = L.mhsa_blocked(p["att"], a_in, n_heads=cfg.n_heads,
+                                   rope_dim=cfg.rope_dim, chunk=chunk,
+                                   left_context=left_context, lengths=lengths,
+                                   cached_scores=cached_scores, compute_dtype=dtype)
+    else:
+        y, scores = L.mhsa(p["att"], a_in, kv, n_heads=cfg.n_heads, rope_dim=cfg.rope_dim,
+                           k_offset=k_offset, mask=att_mask, cached_scores=cached_scores,
+                           compute_dtype=dtype)
     residual = residual + y
 
     y, new_conv_state = _conv_module(p["conv"], bn_stats["conv_bn"],
                                      L.rmsnorm(p["norm_conv"], residual), conv_state,
-                                     cfg.conv_kernel_size, dtype)
+                                     cfg.conv_kernel_size, dtype, pad_mask)
     residual = residual + y
 
     residual = residual + _feed_forward(p["ff2"], L.rmsnorm(p["norm_ff2"], residual),
@@ -336,3 +372,101 @@ def encoder_streaming_step(params: Params, batch_stats: Params, cfg: EncoderConf
         reduction=new_red_state.to(state.reduction.dtype),
     )
     return x, new_state
+
+
+# ---------------------------------------------------------------------------
+# Offline forward (whole utterances) with chunk-simulating masks.
+# ---------------------------------------------------------------------------
+
+
+def _offline_att_mask(t: int, chunk: int, left_context: int,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T, T) chunked-causal attention mask that simulates streaming, True
+    = masked: each query row attends to its own chunk plus ``left_context``
+    frames before the chunk start, within the valid (unpadded) frames."""
+    dev = lengths.device
+    rows = torch.arange(t, device=dev)[:, None]
+    cols = torch.arange(t, device=dev)[None, :]
+    chunk_start = rows - rows % chunk
+    in_chunk = (cols >= chunk_start) & (cols < chunk_start + chunk)
+    in_state = (cols >= chunk_start - left_context) & (cols < chunk_start)
+    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]  # (B, T)
+    allowed = (in_chunk | in_state)[None] & valid[:, None, :] & valid[:, :, None]
+    return ~allowed
+
+
+def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
+                    feats: torch.Tensor, lengths: torch.Tensor | None,
+                    dtype=torch.bfloat16, blocked_attention: bool = True,
+                    ) -> tuple[torch.Tensor, torch.Tensor, Params]:
+    """Full-sequence forward with masks that exactly simulate streaming.
+
+    Attention is chunk-local (plus the 30-frame left context of the two
+    stateful layers), so the output is the chunked streaming step's.
+    ``blocked_attention`` (the default) computes it as dense per-chunk
+    blocks (``layers.mhsa_blocked``); ``False`` uses masked (T, T)
+    products.  Inference only: BatchNorms read their running statistics.
+
+    Args:
+        feats: (B, T_feat, feat_in).
+        lengths: (B,) valid feature-frame counts, or None for all-full.
+
+    Returns:
+        (encoded (B, T_out, d_model), output lengths (B,), batch_stats).
+    """
+    b, t_feat, _ = feats.shape
+    dev = feats.device
+    if lengths is None:
+        lengths = torch.full((b,), t_feat, dtype=torch.int32, device=dev)
+    # Subsampled lengths (the conv stack's output length formula).
+    out_len = lengths.to(dev)
+    for klen, slen, stride in zip(cfg.subsampling_kernel_size, cfg.subsampling_state_lens,
+                                  cfg.subsampling_strides):
+        out_len = torch.div(out_len - klen[0] + slen, stride[0], rounding_mode="floor") + 1
+
+    x, _ = _subsampling(params["pre_encode"], batch_stats["pre_encode"], cfg, feats, None,
+                        dtype)
+    r = cfg.reduction_factor
+    t = x.shape[1]
+    t_red = -(-t // r)
+    len_full = out_len
+    len_red = torch.div(out_len, r, rounding_mode="floor")
+    chunk_full, chunk_red = cfg.chunk_size, cfg.chunk_size // r
+    win_full, win_red = cfg.mhsa_state_size, cfg.mhsa_state_size // r
+
+    # Mask groups: layers below mhsa_stateless_layers have no left context
+    # offline, the stateful ones keep theirs.  Blocked attention takes
+    # (chunk, left_context, lengths) in place of a (T, T) mask.
+    groups = {"full_noctx": (t, chunk_full, 0, len_full),
+              "red_noctx": (t_red, chunk_red, 0, len_red),
+              "red_ctx": (t_red, chunk_red, win_red, len_red),
+              "full_ctx": (t, chunk_full, win_full, len_full)}
+    if blocked_attention:
+        blocks = {k: (c, w, n) for k, (_, c, w, n) in groups.items()}
+        masks = {k: None for k in groups}
+    else:
+        blocks = {k: None for k in groups}
+        masks = {k: _offline_att_mask(*g) for k, g in groups.items()}
+    pad_full = torch.arange(t, device=dev)[None, :] >= len_full[:, None]
+    pad_red = torch.arange(t_red, device=dev)[None, :] >= len_red[:, None]
+
+    residual_pre_reduction = None
+    cached_scores = None
+    for i in range(cfg.n_layers):
+        in_reduced = cfg.reduction_position < i <= cfg.upsample_position
+        stateful = i >= cfg.mhsa_stateless_layers
+        group = ("red_" if in_reduced else "full_") + ("ctx" if stateful else "noctx")
+        if cfg.should_recompute_att_scores[i]:
+            cached_scores = None
+        x, cached_scores, _, _ = _conformer_layer(
+            params["layers"][i], batch_stats["layers"][i], x, cfg=cfg, mhsa_window=None,
+            k_offset=0, att_mask=masks[group], cached_scores=cached_scores,
+            conv_state=None, dtype=dtype, pad_mask=pad_red if in_reduced else pad_full,
+            blocked=blocks[group])
+        if i == cfg.reduction_position:
+            residual_pre_reduction = x
+            x, _ = _temporal_reduction(params["reduction"], x, None, cfg, dtype)
+        if i == cfg.upsample_position:
+            x = _temporal_upsample(x, residual_pre_reduction, r)
+
+    return x, torch.clamp(len_red * r, max=t), batch_stats

@@ -22,6 +22,7 @@ __all__ = [
     "compute_mel_filterbanks",
     "FrontendConstants",
     "get_frontend_constants",
+    "log_mel_offline",
     "log_mel_streaming",
 ]
 
@@ -134,6 +135,32 @@ def _log_mel_from_frames(frames: torch.Tensor, constants: FrontendConstants) -> 
     power = spectrum.square().sum(dim=2)  # (B, T, n_freqs)
     mel = power @ constants.filterbanks
     return torch.log(mel + cfg.log_zero_guard_value)
+
+
+def log_mel_offline(
+    waveform: torch.Tensor,
+    waveform_lens: torch.Tensor | None,
+    constants: FrontendConstants,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Offline features for a padded batch.
+
+    Left-pads by ``state_size`` (80) zeros, so that the offline features
+    line up with the streaming path's zero-initialised carry.
+
+    Args:
+        waveform: float32 waveform in [-1, 1], shape (B, T_samples).
+        waveform_lens: optional lengths in samples, shape (B,).
+
+    Returns:
+        (features (B, T_frames, n_mels) float32, frame lengths (B,) or None).
+    """
+    cfg = constants.config
+    waveform = torch.nn.functional.pad(waveform, (cfg.state_size, 0))
+    frames = _frame(waveform, cfg.win_length, cfg.hop_length)
+    feats = _log_mel_from_frames(frames, constants)
+    lens = (None if waveform_lens is None
+            else torch.div(waveform_lens, cfg.hop_length, rounding_mode="floor"))
+    return feats, lens
 
 
 def log_mel_streaming(

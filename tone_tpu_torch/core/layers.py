@@ -1,5 +1,5 @@
-"""Neural-net primitives of the streaming step (port of
-``tone_tpu/core/layers.py``).
+"""Neural-net primitives of the streaming step and the offline forward (port
+of ``tone_tpu/core/layers.py``).
 
 Plain functions over parameter dictionaries with the reference's layout:
 
@@ -271,3 +271,85 @@ def mhsa(
     ctx = ctx.transpose(1, 2).reshape(b, tq, d)
     out = linear(p["linear_out"], ctx, compute_dtype)
     return out, scores
+
+
+def _block_window(xb: torch.Tensor, n_window_chunks: int) -> torch.Tensor:
+    """(B, H, n, c, d) chunked tensor -> (B, H, n, (nw+1)*c, d) where chunk
+    i's window is chunks [i-nw .. i] (zeros shifted in before the sequence)."""
+    if n_window_chunks == 0:
+        return xb
+    n = xb.shape[2]
+    parts = [F.pad(xb, (0, 0, 0, 0, j, 0))[:, :, :n]
+             for j in range(n_window_chunks, 0, -1)]
+    return torch.cat(parts + [xb], dim=3)
+
+
+def mhsa_blocked(
+    p: Params,
+    x: torch.Tensor,
+    *,
+    n_heads: int,
+    rope_dim: int,
+    chunk: int,
+    left_context: int,
+    lengths: torch.Tensor,
+    cached_scores: torch.Tensor | None,
+    compute_dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-local attention as dense per-chunk blocks (the offline path).
+
+    The same function as ``mhsa`` under the offline chunk-simulating mask
+    (each query chunk attends to itself plus ``left_context`` preceding
+    frames): every key that mask allows is inside the block window, and
+    every key outside it would take -1e4 and vanish in the float32
+    softmax.  Computes (B, H, n_chunks, c, w+c) score blocks instead of
+    (B, H, T, T).  ``left_context`` must be a whole number of chunks.
+
+    Returns (output (B, T, D), scores (B, H, n, c, w+c) float32); the scores
+    are reusable as ``cached_scores`` by the score-sharing layers of the
+    same mask group, as ``mhsa``'s are.
+    """
+    b, t, d = x.shape
+    d_head = d // n_heads
+    if left_context % chunk:
+        raise ValueError(f"left_context {left_context} is not a multiple of chunk {chunk}")
+    nw = left_context // chunk
+    n = -(-t // chunk)
+    tp = n * chunk
+
+    def blocked(proj):  # (B, T, H, dh) -> (B, H, n, c, dh)
+        proj = F.pad(proj.transpose(1, 2), (0, 0, 0, tp - t))
+        return proj.reshape(b, n_heads, n, chunk, d_head)
+
+    def rope(xb):  # RoPE positions are absolute: applied on the padded (B, H, Tp, dh)
+        return apply_rope(xb.reshape(b, n_heads, tp, d_head), rope_dim, 0).reshape(
+            b, n_heads, n, chunk, d_head)
+
+    if cached_scores is None:
+        q = linear(p["linear_q"], x, compute_dtype).reshape(b, t, n_heads, d_head)
+        k = linear(p["linear_k"], x, compute_dtype).reshape(b, t, n_heads, d_head)
+        qb = rope(blocked(layernorm(p["q_ln"], q)))
+        kwin = _block_window(rope(blocked(layernorm(p["k_ln"], k))), nw)
+        scores = _mm(qb, kwin.transpose(-1, -2)) / math.sqrt(d_head)
+    else:
+        scores = cached_scores
+
+    v = linear(p["linear_v"], x, compute_dtype).reshape(b, t, n_heads, d_head)
+    vwin = _block_window(blocked(v), nw)
+
+    # Mask (True = masked): window slot s of chunk i is global column
+    # (i - nw) * chunk + s, masked before the sequence start or at/past the
+    # valid length; rows at/past the valid length are masked whole.
+    dev = x.device
+    cols = ((torch.arange(n, device=dev)[:, None] - nw) * chunk
+            + torch.arange((nw + 1) * chunk, device=dev))                  # (n, w+c)
+    rows = torch.arange(tp, device=dev).reshape(n, chunk)                 # (n, c)
+    lens = lengths.to(dev)[:, None, None]
+    col_ok = (cols[None] >= 0) & (cols[None] < lens)                      # (B, n, w+c)
+    row_ok = rows[None] < lens                                            # (B, n, c)
+    m = ~(row_ok[:, :, :, None] & col_ok[:, :, None, :])[:, None]         # (B, 1, n, c, w+c)
+
+    attn = torch.softmax(scores.float().masked_fill(m, -10000.0), dim=-1).masked_fill(m, 0.0)
+    ctx = _mm(attn.to(compute_dtype), vwin).to(compute_dtype)             # (B, H, n, c, dh)
+    ctx = ctx.reshape(b, n_heads, tp, d_head).transpose(1, 2)[:, :t].reshape(b, t, d)
+    return linear(p["linear_out"], ctx, compute_dtype), scores

@@ -1,8 +1,11 @@
-"""The full streaming acoustic model: frontend + Conformer encoder + CTC head
-(port of ``tone_tpu/core/model.py``, streaming half).
+"""The full acoustic model: frontend + Conformer encoder + CTC head (port of
+``tone_tpu/core/model.py``).
 
 ``apply_streaming(variables, config, audio_chunk, state)`` runs one 300 ms
-chunk with explicit recurrent state in and state out.  ``pack_state`` /
+chunk with explicit recurrent state in and state out;
+``apply_offline(variables, config, audio, lengths)`` runs whole utterances
+through the full-sequence forward, whose chunk-simulating masks give the
+chunked streaming step's output.  ``pack_state`` /
 ``unpack_state`` convert the state to and from the reference-compatible
 flat ``(B, 219729)`` fp16 blob with the JAX package's layout, so a stream
 can move between the two packages.
@@ -19,6 +22,7 @@ from tone_tpu_torch.config import ToneConfig
 from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.core.encoder import (
     EncoderStreamState,
+    encoder_offline,
     encoder_streaming_step,
     init_encoder_params,
     init_encoder_state,
@@ -26,6 +30,7 @@ from tone_tpu_torch.core.encoder import (
 from tone_tpu_torch.core.frontend import (
     FrontendConstants,
     get_frontend_constants,
+    log_mel_offline,
     log_mel_streaming,
 )
 
@@ -110,6 +115,47 @@ def apply_streaming(variables: dict[str, Params], config: ToneConfig,
     logprobs = _head(variables["params"]["head"], encoded)
     return logprobs, StreamingState(preproc=preproc_next.to(state.preproc.dtype),
                                     encoder=enc_state)
+
+
+@torch.no_grad()
+def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch.Tensor,
+                  lengths: torch.Tensor | None = None,
+                  constants: FrontendConstants | None = None, training: bool = False,
+                  blocked_attention: bool = True,
+                  ) -> tuple[torch.Tensor, torch.Tensor, dict[str, Params]]:
+    """Full-sequence forward of whole utterances (inference).
+
+    Args:
+        audio: (B, T_samples) waveform on the device of ``variables``: an
+            integer dtype is in the int16 range (scaled by 1/32767), a float
+            dtype is taken as it is (already in [-1, 1]).
+        lengths: (B,) valid sample counts, or None.
+        training: must be False; dropout and BatchNorm statistic updates come
+            with the training slice (ROADMAP A13).
+        blocked_attention: chunk-local attention as per-chunk blocks (the
+            default) or as masked (T, T) products.
+
+    Returns:
+        (logprobs (B, T_frames_out, vocab+1) float32, output lengths (B,),
+         batch_stats).
+    """
+    if training:
+        raise NotImplementedError(
+            "apply_offline(training=True): dropout and BatchNorm statistic "
+            "updates are not ported yet (ROADMAP A13, training)")
+    if constants is None:
+        constants = get_frontend_constants(config.frontend, audio.device)
+    dtype = getattr(torch, config.compute_dtype)
+
+    if audio.dtype.is_floating_point:
+        wav = audio.to(torch.float32)
+    else:
+        wav = audio.to(torch.float32) / INT16_MAX
+    feats, feat_lens = log_mel_offline(wav, lengths, constants)
+    encoded, out_len, stats = encoder_offline(
+        variables["params"]["encoder"], variables["batch_stats"], config.encoder,
+        feats, feat_lens, dtype, blocked_attention=blocked_attention)
+    return _head(variables["params"]["head"], encoded), out_len, stats
 
 
 # ---------------------------------------------------------------------------
