@@ -82,7 +82,25 @@ prints one JSON line per phase:
             equal) and through ``word_timestamps=True``; ``evaluate_pipeline``
             over a manifest of the utterances; ``python -m tone_tpu_torch
             transcribe --batch-size 16 --json`` on two FLACs written by the
-            port's encoder.
+            port's encoder;
+13. train   ``Trainer`` on the full-width ``ToneConfig()`` (seed-0 random
+            weights, bf16 compute, float32 parameters and AdamW state,
+            dropout 0.1, blocked attention, lr 3e-4 over 20 steps) on one
+            batch of 16 utterances of speech-shaped audio (seeds 100-115,
+            4-12 s, 128 s in all) labelled with phrases and collated by the
+            port's collator: 2 warm steps, 10 timed (ms per step, audio s
+            per s, peak memory, every loss; the losses finite and the last
+            below the second, the first at lr 0), 3 profiled (device ms per
+            step, idle share, launches per step); one step's gradients with
+            ``remat="full"`` and ``"dots"`` against none from the same state
+            and dropout seed, in bf16 and in float32 compute (loss within
+            1e-5, gradients within 1e-2 and 1e-4 of their norm; another
+            dropout seed in float32 must differ by 100 times that; peak
+            memory of each); the step's loss, gradients and
+            BatchNorm statistics on the card against the CPU at dropout 0 on
+            2 utterances of 3 s; the trained weights streamed through
+            ``StreamingCTCModel.forward_native`` (2 streams x 5 chunks, 32
+            GLU kernel launches per step) within 0.1 of the offline forward.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line needs the kernels, serve, fused_kernels, fused_step and bulk
@@ -669,7 +687,7 @@ def _device_profile(fn, check: bool = False, top: int = 0) -> dict:
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type().name == "CUDA"]
     if not events:
-        raise AssertionError("the profiler saw no device time for the beam search")
+        raise AssertionError("the profiler saw no device time for the call")
     out = {"device_ms": sum(e.duration_ns() for e in events) / 1e6, "launches": len(events)}
     if top:
         by_name: dict[str, list] = {}
@@ -1261,8 +1279,225 @@ def phase_bulk() -> dict:
             "cli": {"files": len(files), "seconds": cli_s, "texts_equal_in_process": cli_equal}}
 
 
+# The train cell: 16 utterances of speech-shaped audio (the port's
+# synthesizer, seeds 100-115) of these many seconds, 128 s in all, one batch,
+# each labelled with one phrase of TRAIN_TEXTS per synthesized phrase.
+TRAIN_SECONDS = tuple(4 + 8 * k / 15 for k in range(16))
+TRAIN_TEXTS = ("да нет", "привет мир", "спасибо до свидания", "алло слушаю",
+               "добрый день", "всего хорошего")
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 2, 10, 3
+TRAIN_LOSS_TOL = 1e-5       # remat against none: relative loss
+# ... and |Δg| / |g| of the flattened gradients.  The bf16 backward rounds
+# every activation gradient to bf16, so any change of summation order (the
+# card picks among GEMM and convolution algorithms per call) grows through
+# the layers to about one bf16 step: two runs of the same step differ by 0
+# or about 4e-3 (dev/torch_train_remat_noise.py), as much as other dropout
+# masks may move them.  In float32 compute the spread stays small, and a
+# second dropout seed, the control, must differ by 100x the bound.
+TRAIN_REMAT_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+TRAIN_CPU_LOSS_TOL = 1e-2   # card against CPU at dropout 0: relative loss,
+TRAIN_CPU_COSINE = 0.999    # the cosine of the flattened gradients
+TRAIN_CPU_STATS_TOL = 1e-3  # and the updated BatchNorm statistics
+TRAIN_DEVICE = "cuda"
+# Kinds of device kernel by the first match of their name (first 60 chars).
+TRAIN_KERNEL_KINDS = (("gemm", ("gemm",)), ("conv", ("cudnn", "conv", "dgrad", "wgrad")),
+                      ("glu_ff2", ("glu_ff2",)), ("reduce", ("reduce", "norm", "softmax")),
+                      ("ctc", ("ctc",)), ("elementwise", ("elementwise", "foreach", "copy")))
+
+
+def train_features(seeds, seconds) -> list[dict]:
+    """Utterances of phrases of about 2.5 s with the synthesizer's 0.8 s
+    pauses, as collator features: float audio in [-1, 1] and the text of
+    their phrases."""
+    from tone_tpu_torch.audio.examples import synthesize_speech_like
+
+    feats = []
+    for seed, total in zip(seeds, seconds):
+        n = max(1, round((total - 0.5) / 3.3))
+        audio = synthesize_speech_like(seed, ((total - 0.5) / n - 0.8,) * n)
+        text = " ".join(TRAIN_TEXTS[(seed + j) % len(TRAIN_TEXTS)] for j in range(n))
+        feats.append({"input_values": audio.astype(np.float32) / 32767.0, "labels": text})
+    return feats
+
+
+def _flat_leaves(tree) -> list:
+    from tone_tpu_torch.bridge import tree_leaves
+
+    return [t.detach().float().reshape(-1).cpu() for t in tree_leaves(tree)]
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The path of every leaf of a tree of dicts and tuples, in leaf order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def grad_diff(g: list, base: list, params) -> dict:
+    """|g - base| / |base| for gradients given as flat per-leaf tensors (in
+    the leaf order of ``params``), and the four leaves that hold most of
+    |g - base|² with their shares."""
+    diff = [((x - y).norm() ** 2).item() for x, y in zip(g, base)]
+    total = sum(diff)
+    shares = zip(leaf_names(params), (d / (total or 1.0) for d in diff))
+    return {"rel_err": (total / sum((y.norm() ** 2).item() for y in base)) ** 0.5,
+            "top_leaves": sorted(shares, key=lambda kv: -kv[1])[:4]}
+
+
+def phase_train() -> dict:
+    import dataclasses
+
+    import torch
+
+    from tone_tpu_torch.acoustic import StreamingCTCModel
+    from tone_tpu_torch.bridge import tree_leaves, tree_map
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import apply_offline, init_model_params
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+    from tone_tpu_torch.training import DataCollatorCTCWithPadding, Trainer, TrainerConfig
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    collate = DataCollatorCTCWithPadding()
+    t0 = time.perf_counter()
+    feats = train_features(range(100, 116), TRAIN_SECONDS)
+    corpus_s = time.perf_counter() - t0
+    batch = collate(feats)
+    audio_s = float(batch["input_lengths"].sum()) / 8000
+    tcfg = TrainerConfig(learning_rate=3e-4, total_steps=20)
+    trainer = Trainer(cfg, tcfg, device=TRAIN_DEVICE)
+    state = trainer.create_state(variables)
+    losses = []
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            state, loss = trainer.train_step(state, batch)
+            losses.append(loss)
+
+    steps(TRAIN_WARM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps(TRAIN_TIMED)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    prof = _device_profile(lambda: steps(TRAIN_PROFILED), top=10_000)
+    losses = [float(v) for v in losses]
+    timed_losses = losses[:TRAIN_WARM + TRAIN_TIMED]
+    if not all(math.isfinite(v) for v in losses) or not timed_losses[-1] < timed_losses[1]:
+        raise AssertionError(f"train: losses {losses}")
+    device_ms = prof["device_ms"] / TRAIN_PROFILED
+    # Device ms per step by kind of kernel (by name).
+    kinds = {}
+    for name, kernel_ms, _ in prof["top_kernels"]:
+        kind = next((k for k, keys in TRAIN_KERNEL_KINDS if any(x in name for x in keys)),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + kernel_ms / TRAIN_PROFILED
+
+    # Remat: one step's gradients with each policy from the trained state
+    # and one dropout seed (dropout on), against no remat: in the cell's
+    # bf16 and, where the card's spread is small enough to tell masks apart,
+    # in float32 compute, with another dropout seed as the control.
+    remat = {}
+    for dtype, runs in (("bfloat16", ((None, 12345), ("full", 12345), ("dots", 12345))),
+                        ("float32", ((None, 12345), ("full", 12345), ("dots", 12345),
+                                     (None, 54321)))):
+        for policy, seed in runs:
+            t = Trainer(dataclasses.replace(cfg, compute_dtype=dtype),
+                        dataclasses.replace(tcfg, remat=policy), device=TRAIN_DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads, _ = t.compute_gradients(state, batch, seed=seed)
+            remat[f"{dtype}/{policy}/{seed}"] = {
+                "loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "g": _flat_leaves(grads)}
+            del grads
+        base = remat[f"{dtype}/None/12345"]
+        for name, r in remat.items():
+            if name.startswith(dtype) and r is not base:
+                r["loss_rel_err"] = abs(r["loss"] - base["loss"]) / abs(base["loss"])
+                d = grad_diff(r["g"], base["g"], state.params)
+                r["grad_rel_err"], r["grad_diff_top_leaves"] = d["rel_err"], d["top_leaves"]
+    for r in remat.values():
+        del r["g"]
+    bad = {name: r for name, r in remat.items() if "loss_rel_err" in r
+           and not name.endswith("54321") and not (
+               r["loss_rel_err"] <= TRAIN_LOSS_TOL
+               and r["grad_rel_err"] <= TRAIN_REMAT_GRAD_TOL[name.split("/")[0]])}
+    control = remat["float32/None/54321"]["grad_rel_err"]
+    if bad or not control > 100 * TRAIN_REMAT_GRAD_TOL["float32"]:
+        raise AssertionError(f"train remat: {remat}")
+
+    # Card against CPU: the step's forward and backward at dropout 0 on two
+    # utterances of 3 s, from the seed-0 weights.
+    cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0,
+                                                                 dropout_att=0.0))
+    small = collate(train_features((116, 117), (3.0, 3.0)))
+    sides = {}
+    for device in (TRAIN_DEVICE, "cpu"):
+        t = Trainer(cfg0, tcfg, device=device)
+        t0 = time.perf_counter()
+        loss, grads, stats = t.compute_gradients(t.create_state(variables), small)
+        sides[device] = (float(loss), _flat_leaves(grads), torch.cat(_flat_leaves(stats)),
+                         time.perf_counter() - t0)
+    (lg, gg, sg, card_s), (lc, gc, sc, cpu_s) = sides[TRAIN_DEVICE], sides["cpu"]
+    d = grad_diff(gg, gc, variables["params"])
+    cpu = {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+           "grad_cosine": torch.nn.functional.cosine_similarity(
+               torch.cat(gg).double(), torch.cat(gc).double(), dim=0).item(),
+           "grad_rel_err": d["rel_err"], "grad_diff_top_leaves": d["top_leaves"],
+           "stats_max_abs_err": (sg - sc).abs().max().item(), "card_s": card_s, "cpu_s": cpu_s}
+    if not (cpu["loss_rel_err"] <= TRAIN_CPU_LOSS_TOL and cpu["grad_cosine"] >= TRAIN_CPU_COSINE
+            and cpu["stats_max_abs_err"] <= TRAIN_CPU_STATS_TOL):
+        raise AssertionError(f"train, card vs CPU: {cpu}")
+
+    # Deploy: the trained weights through the streaming step (B1 on the
+    # path) against the offline forward of the same weights.
+    trained = tree_map(lambda t: t.detach(), {"params": state.params,
+                                              "batch_stats": state.batch_stats})
+    model = StreamingCTCModel(trained, cfg, device=TRAIN_DEVICE)
+    chunk, n_chunks = cfg.audio_chunk_samples, 5
+    pcm = np.stack([np.round(f["input_values"][:chunk * n_chunks] * 32767.0)
+                    for f in feats[:2]]).astype(np.int32)
+    glu_ff2.launches = 0
+    stream_state, outs = None, []
+    for k in range(n_chunks):
+        lp, stream_state = model.forward_native(pcm[:, k * chunk:(k + 1) * chunk], stream_state)
+        outs.append(lp)
+    torch.cuda.synchronize()
+    deploy_launches = glu_ff2.launches
+    if deploy_launches != 2 * cfg.encoder.n_layers * n_chunks:   # 32 per step
+        raise AssertionError(f"train deploy: {deploy_launches} GLU launches in {n_chunks} steps")
+    streamed = torch.cat(outs, dim=1)
+    offline, _, _ = apply_offline(trained, cfg, torch.from_numpy(pcm).to(TRAIN_DEVICE))
+    if streamed.shape != offline.shape or not torch.isfinite(streamed).all():
+        raise AssertionError(f"train deploy: shapes {streamed.shape} {offline.shape}")
+    deploy_err = (streamed - offline).abs().max().item()
+    if not deploy_err <= STEP_TOL:
+        raise AssertionError(f"train deploy: streaming vs offline {deploy_err} > {STEP_TOL}")
+
+    return {"phase": "train", "nvidia_smi": nvidia_smi(), "config": "ToneConfig() bf16",
+            "parameters": sum(t.numel() for t in tree_leaves(state.params)),
+            "trainer": dataclasses.asdict(tcfg), "utterances": len(feats),
+            "batch_shape": list(batch["input_values"].shape), "audio_s": audio_s,
+            "corpus_s": corpus_s, "ms_per_step": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+            "device_ms_per_step": device_ms, "device_idle_share": 1.0 - device_ms / ms,
+            "launches_per_step": prof["launches"] / TRAIN_PROFILED,
+            "device_ms_per_step_by_kind": kinds, "top_kernels": prof["top_kernels"][:8],
+            "peak_memory_bytes": peak, "losses": losses,
+            "remat": remat, "remat_grad_tol": TRAIN_REMAT_GRAD_TOL, "cpu": cpu,
+            "deploy": {"streams": 2, "chunks": n_chunks, "glu_launches": deploy_launches,
+                       "max_abs_err_streaming_vs_offline": deploy_err, "tol": STEP_TOL}}
+
+
 PHASES = ("kernels", "step", "serve", "fused_kernels", "fused_step", "beam_decode",
-          "serve_beam", "serve_fused", "serve_host_beam", "bulk")
+          "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train")
 
 
 def kernel_summary(out: dict) -> dict:

@@ -660,3 +660,106 @@ def test_viterbi_paths_on_card_match_cpu(cuda):
         assert torch.allclose(sg.cpu(), sc, rtol=1e-6)
     assert align_device.align_words_batch(lps, texts, device=cuda) == \
         align_device.align_words_batch(lps, texts, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Training: the train step, remat and the CTC loss, card against CPU.
+# ---------------------------------------------------------------------------
+
+from tone_tpu_torch.bridge import tree_leaves  # noqa: E402
+from tone_tpu_torch.training import (  # noqa: E402
+    DataCollatorCTCWithPadding,
+    Trainer,
+    TrainerConfig,
+    ctc_loss,
+)
+
+
+def _tiny_training(dtype="float32", dropout=0.0):
+    cfg = ToneConfig(encoder=EncoderConfig(**dict(TINY, dropout=dropout, dropout_att=dropout)),
+                     compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(2)
+    variables = _perturbed(init_model_params(gen, cfg), gen)
+    rng = np.random.default_rng(5)
+    batch = DataCollatorCTCWithPadding()(
+        [{"input_values": rng.normal(0, 0.1, n).astype(np.float32), "labels": t}
+         for n, t in ((4000, "да нет"), (6500, "привет мир"), (2400, "ёж"))])
+    return cfg, variables, batch
+
+
+def _flat(tree):
+    return torch.cat([t.detach().float().cpu().reshape(-1) for t in tree_leaves(tree)])
+
+
+# float32: both devices run float32 products (no TF32), so they differ by
+# summation order; bf16: by bf16 roundings, as the bf16 step (0.1 on logprobs).
+TRAIN_TOLS = {"float32": (1e-4, 0.99999, 1e-4), "bfloat16": (1e-2, 0.999, 1e-3)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_train_step_on_card_matches_cpu(cuda, dtype):
+    """Loss (relative), the cosine of the flattened gradients and the
+    updated BatchNorm statistics (absolute), then one train_step each."""
+    loss_tol, cos_min, stats_tol = TRAIN_TOLS[dtype]
+    cfg, variables, batch = _tiny_training(dtype)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        trainer = Trainer(cfg, TrainerConfig(total_steps=10, learning_rate=1e-3), device=dev)
+        state = trainer.create_state(variables)
+        loss, grads, stats = trainer.compute_gradients(state, batch)
+        state, step_loss = trainer.train_step(state, batch)
+        assert state.step == 1 and float(step_loss) == float(loss)
+        out[dev.type] = (float(loss), _flat(grads), _flat(stats))
+    (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= loss_tol * abs(lc)
+    assert torch.nn.functional.cosine_similarity(gg.double(), gc.double(), dim=0).item() \
+        >= cos_min
+    assert (sg - sc).abs().max().item() <= stats_tol
+
+
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_on_card_matches_no_remat(cuda, remat, monkeypatch):
+    """With dropout on: the recomputed forward draws the same masks, so the
+    loss agrees within 1e-5 (relative) and the gradients within 1e-6 of
+    their norm, under cuDNN's deterministic algorithms (its default
+    convolution backward adds in a varying order: about 3e-5 at full width,
+    dev/torch_train_remat_noise.py)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, variables, batch = _tiny_training(dropout=0.1)
+    out = {}
+    for policy in (None, remat):
+        trainer = Trainer(cfg, TrainerConfig(remat=policy), device=cuda)
+        loss, grads, _ = trainer.compute_gradients(trainer.create_state(variables), batch,
+                                                   seed=11)
+        out[policy] = (float(loss), _flat(grads))
+    (l0, g0), (l1, g1) = out[None], out[remat]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert (g1 - g0).norm().item() <= 1e-6 * g0.norm().item()
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_ctc_loss_on_card_matches_cpu(cuda, reduction):
+    """Loss within 1e-5 relative and the logits' gradient within 3e-5 of its
+    largest value, with a row whose target is longer than its output (0 in
+    both, gradient 0)."""
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(rng.normal(0, 2, (4, 40, 35)).astype(np.float32))
+    lens = torch.tensor([40, 31, 20, 2], dtype=torch.int32)
+    labels = torch.full((4, 8), -100, dtype=torch.int32)
+    labels[0, :5] = torch.tensor([1, 2, 3, 4, 5])
+    labels[1, :3] = torch.tensor([6, 7, 8])
+    labels[2, :2] = torch.tensor([9, 9])
+    labels[3, :3] = torch.tensor([1, 2, 3])
+    weights = torch.linspace(0.5, 1.5, 4)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        lg = logits.to(dev).requires_grad_(True)
+        loss = ctc_loss(torch.log_softmax(lg, -1), lens.to(dev), labels.to(dev),
+                        blank_id=BLANK_ID, reduction=reduction)
+        val = (loss * weights.to(dev)).sum() if reduction == "none" else loss
+        (grad,) = torch.autograd.grad(val, lg)
+        out[dev.type] = (loss.detach().cpu(), grad.cpu())
+    (vg, gg), (vc, gc) = out["cuda"], out["cpu"]
+    assert torch.allclose(vg, vc, rtol=1e-5, atol=0)
+    assert (gg - gc).abs().max().item() <= 3e-5 * gc.abs().max().item()
+    assert torch.all(gg[3] == 0) and torch.all(gc[3] == 0)

@@ -35,7 +35,8 @@ def test_no_jax_or_tone_tpu_import(path):
     "tone_tpu_torch", "tone_tpu_torch.acoustic", "tone_tpu_torch.runtime.server",
     "tone_tpu_torch.__main__", "tone_tpu_torch.decoding.device_lm",
     "tone_tpu_torch.decoding.native", "tone_tpu_torch.offline", "tone_tpu_torch.eval",
-    "tone_tpu_torch.ops.align_device"])
+    "tone_tpu_torch.ops.align_device", "tone_tpu_torch.training",
+    "tone_tpu_torch.training.train"])
 def test_import_leaves_jax_out_of_sys_modules(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "

@@ -84,7 +84,29 @@ def test_batchnorm_eval(channel_axis):
     shape[channel_axis] = c
     x = _f32(*shape)
     ref, _ = JL.batchnorm(jp, js, jnp.asarray(x), channel_axis=channel_axis)
-    _close(ref, TL.batchnorm(tp, ts, torch.from_numpy(x), channel_axis=channel_axis))
+    y, stats = TL.batchnorm(tp, ts, torch.from_numpy(x), channel_axis=channel_axis)
+    _close(ref, y)
+    assert stats is ts  # eval mode hands the running statistics back
+
+
+@pytest.mark.parametrize("channel_axis", [1, 2])
+def test_batchnorm_train(channel_axis):
+    """Batch statistics for the output, running statistics updated with
+    momentum 0.1 from the unbiased variance, as the JAX package's."""
+    c = 6
+    jp, tp = _both({"scale": _f32(c, seed=1), "bias": _f32(c, seed=2)})
+    js, ts = _both({"mean": _f32(c, seed=3), "var": np.abs(_f32(c, seed=4)) + 0.5})
+    shape = [2, 5, 7]
+    shape[channel_axis] = c
+    x = _f32(*shape, seed=5, scale=2.0)
+    ref, ref_stats = JL.batchnorm(jp, js, jnp.asarray(x), channel_axis=channel_axis,
+                                  training=True)
+    y, stats = TL.batchnorm(tp, ts, torch.from_numpy(x), channel_axis=channel_axis,
+                            training=True)
+    _close(ref, y)
+    for k in ("mean", "var"):
+        _close(ref_stats[k], stats[k])
+        assert not stats[k].requires_grad
 
 
 def test_silu_and_conv_glu():

@@ -166,6 +166,32 @@ def test_offline_forward_equals_chunked_streaming():
 
 
 def test_training_raises():
-    _, tc, _, tv = _models("float32")
-    with pytest.raises(NotImplementedError, match="A13"):
-        TM.apply_offline(tv, tc, torch.zeros(1, N, dtype=torch.int32), training=True)
+    """What training still lacks raises: the data-parallel mesh (A14).
+    ``apply_offline(training=True)`` itself runs (the case below)."""
+    from tone_tpu_torch.training import Trainer
+
+    _, tc, _, _ = _models("float32")
+    with pytest.raises(NotImplementedError, match="A14"):
+        Trainer(tc, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_mode_blocked_matches_masked_attention(dtype):
+    """Training mode (batch statistics, no dropout key) through the port's
+    two attention paths, as tests/test_encoder_blocked.py holds the JAX
+    package's: logprobs within 2e-3, updated statistics within 1e-5, and
+    the statistics differ from the running ones that went in."""
+    _, tc, _, tv = _models(dtype)
+    wav, lens = _ragged_batch()
+    outs = [TM.apply_offline(tv, tc, torch.from_numpy(wav), torch.from_numpy(lens),
+                             training=True, blocked_attention=blocked)
+            for blocked in (True, False)]
+    (lp_b, len_b, st_b), (lp_m, _, st_m) = outs
+    for row, n in enumerate(len_b.tolist()):
+        np.testing.assert_allclose(lp_b[row, :n].detach().numpy(),
+                                   lp_m[row, :n].detach().numpy(), atol=2e-3, rtol=1e-3)
+    for a, b, before in zip(jax.tree.leaves(tree_map(np.asarray, st_b)),
+                            jax.tree.leaves(tree_map(np.asarray, st_m)),
+                            jax.tree.leaves(tree_map(np.asarray, tv["batch_stats"]))):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
+        assert not np.array_equal(a, before)

@@ -24,6 +24,8 @@ __all__ = [
     "StreamingCTCPipeline",
     "TextPhrase",
     "ToneConfig",
+    "Trainer",
+    "TrainerConfig",
     "read_audio",
     "read_example_audio",
     "read_stream_audio",
@@ -40,6 +42,8 @@ _LAZY = {
     "StreamingCTCPipeline": ("tone_tpu_torch.pipeline", "StreamingCTCPipeline"),
     "TextPhrase": ("tone_tpu_torch.pipeline", "TextPhrase"),
     "ToneConfig": ("tone_tpu_torch.config", "ToneConfig"),
+    "Trainer": ("tone_tpu_torch.training.train", "Trainer"),
+    "TrainerConfig": ("tone_tpu_torch.training.train", "TrainerConfig"),
     "read_audio": ("tone_tpu_torch.audio", "read_audio"),
     "read_example_audio": ("tone_tpu_torch.audio", "read_example_audio"),
     "read_stream_audio": ("tone_tpu_torch.audio", "read_stream_audio"),

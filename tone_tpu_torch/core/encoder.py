@@ -1,6 +1,6 @@
 """Conformer encoder (port of ``tone_tpu/core/encoder.py``): the streaming
-step and the full-sequence offline forward (inference; training waits for
-its slice).
+step and the full-sequence offline forward, for inference and for training
+(dropout and BatchNorm statistic updates).
 
 Architecture (the reference's ToneConfig contract):
   * conv subsampling x3 in time with carried input tails;
@@ -164,15 +164,15 @@ def _feed_forward(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _conv_module(p: Params, bn_stats: Params, x: torch.Tensor,
                  conv_state: torch.Tensor | None, kernel_size: int, dtype,
-                 pad_mask: torch.Tensor | None = None,
-                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 pad_mask: torch.Tensor | None = None, training: bool = False,
+                 ) -> tuple[torch.Tensor, torch.Tensor | None, Params]:
     """pointwise -> GLU -> causal depthwise (over conv_state ‖ x) -> BN
     -> SiLU -> pointwise, feature-last.
 
     ``conv_state`` None (offline) pads with kernel-1 zeros instead, the
     same as a zero state; ``pad_mask`` (B, T), True on padding frames
     (offline only), zeroes those frames before the depthwise conv.
-    Returns (output, next conv_state or None)."""
+    Returns (output, next conv_state or None, BatchNorm statistics)."""
     d = x.shape[-1]
     y = L.glu(L.linear(p["pw1"], x, dtype), dim=-1)  # (B, T, D)
     if pad_mask is not None:
@@ -183,18 +183,19 @@ def _conv_module(p: Params, bn_stats: Params, x: torch.Tensor,
         padded = torch.cat([conv_state.to(y.dtype), y], dim=1)
         next_state = padded[:, -(kernel_size - 1):, :]
     y = L.conv1d_nhc(p["dw"], padded, stride=1, groups=d, compute_dtype=dtype)
-    y = L.batchnorm(p["bn"], bn_stats, y, channel_axis=2)
+    y, new_bn = L.batchnorm(p["bn"], bn_stats, y, channel_axis=2, training=training)
     y = L.linear(p["pw2"], L.silu(y), dtype)
-    return y, next_state
+    return y, next_state, new_bn
 
 
 def _subsampling(p: Params, stats: Params, cfg: EncoderConfig, feats: torch.Tensor,
                  sub_states: tuple[torch.Tensor, torch.Tensor] | None,
-                 dtype) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+                 dtype, training: bool = False,
+                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None, Params]:
     """Conv subsampling (x3 in time) with carried input tails; ``sub_states``
     None (offline) prepends zero tails, the same as zero states.
 
-    Returns ((B, T_out, d_model), next tails or None)."""
+    Returns ((B, T_out, d_model), next tails or None, BatchNorm statistics)."""
     sub_lens = cfg.subsampling_state_lens
     x = L.rmsnorm(p["pre_norm"], feats.to(dtype))
     x = x[:, None, :, :]  # (B, 1, T, F) — NCHW with time as H
@@ -207,13 +208,16 @@ def _subsampling(p: Params, stats: Params, cfg: EncoderConfig, feats: torch.Tens
             x = torch.cat([sub_states[i].to(x.dtype), x], dim=2)
             new_states.append(x[:, :, -sub_lens[i]:, :])
         x = L.conv2d(p[conv_name], x, cfg.subsampling_strides[i], dtype)
-        x = L.silu(L.batchnorm(p[bn_name], stats[bn_name], x, channel_axis=1))
+        x, new_bn = L.batchnorm(p[bn_name], stats[bn_name], x, channel_axis=1,
+                                training=training)
+        stats = {**stats, bn_name: new_bn}
+        x = L.silu(x)
 
     # (B, C, T_out, F_out) -> (B, T_out, C * F_out) with (channel, freq) order.
     b, c, t_out, f_out = x.shape
     x = x.transpose(1, 2).reshape(b, t_out, c * f_out)
     x = L.rmsnorm(p["out_norm"], L.linear(p["out"], x, dtype))
-    return x, (tuple(new_states) if sub_states is not None else None)
+    return x, (tuple(new_states) if sub_states is not None else None), stats
 
 
 def _temporal_reduction(p: Params, x: torch.Tensor, red_state: torch.Tensor | None,
@@ -247,16 +251,27 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
                      k_offset: int, att_mask: torch.Tensor | None,
                      cached_scores: torch.Tensor | None, conv_state: torch.Tensor | None,
                      dtype, pad_mask: torch.Tensor | None = None,
-                     blocked: tuple[int, int, torch.Tensor] | None = None):
+                     blocked: tuple[int, int, torch.Tensor] | None = None,
+                     generators: dict[str, torch.Generator] | None = None,
+                     training: bool = False):
     """One Macaron Conformer block.
 
     ``blocked`` = (chunk, left_context, lengths) routes the attention through
     the block-diagonal offline path (``layers.mhsa_blocked``) instead of a
     masked (T, T) product; ``att_mask`` is then None.  ``pad_mask`` and
     ``conv_state=None`` are the offline conv module's (``_conv_module``).
+    In training, ``generators`` holds one dropout generator per site
+    (``DROPOUT_SITES``); without it no dropout applies.
 
-    Returns (output, scores, new_mhsa_window or None, new_conv_state or None)."""
-    residual = x + _feed_forward(p["ff1"], L.rmsnorm(p["norm_ff1"], x), dtype) * 0.5
+    Returns (output, scores, new_mhsa_window or None, new_conv_state or None,
+    BatchNorm statistics)."""
+    gens = generators or {}
+
+    def drop(site, v, rate):
+        return L.dropout(v, rate, training, gens.get(site))
+
+    y = _feed_forward(p["ff1"], L.rmsnorm(p["norm_ff1"], x), dtype)
+    residual = x + drop("ff1", y, cfg.dropout) * 0.5
 
     a_in = L.rmsnorm(p["norm_att"], residual)
     if mhsa_window is not None:
@@ -271,21 +286,25 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
         y, scores = L.mhsa_blocked(p["att"], a_in, n_heads=cfg.n_heads,
                                    rope_dim=cfg.rope_dim, chunk=chunk,
                                    left_context=left_context, lengths=lengths,
-                                   cached_scores=cached_scores, compute_dtype=dtype)
+                                   cached_scores=cached_scores, compute_dtype=dtype,
+                                   dropout_generator=gens.get("att"),
+                                   dropout_rate=cfg.dropout_att, training=training)
     else:
         y, scores = L.mhsa(p["att"], a_in, kv, n_heads=cfg.n_heads, rope_dim=cfg.rope_dim,
                            k_offset=k_offset, mask=att_mask, cached_scores=cached_scores,
-                           compute_dtype=dtype)
-    residual = residual + y
+                           compute_dtype=dtype, dropout_generator=gens.get("att"),
+                           dropout_rate=cfg.dropout_att, training=training)
+    residual = residual + drop("att_out", y, cfg.dropout)
 
-    y, new_conv_state = _conv_module(p["conv"], bn_stats["conv_bn"],
-                                     L.rmsnorm(p["norm_conv"], residual), conv_state,
-                                     cfg.conv_kernel_size, dtype, pad_mask)
-    residual = residual + y
+    y, new_conv_state, new_bn = _conv_module(p["conv"], bn_stats["conv_bn"],
+                                             L.rmsnorm(p["norm_conv"], residual), conv_state,
+                                             cfg.conv_kernel_size, dtype, pad_mask, training)
+    residual = residual + drop("conv", y, cfg.dropout)
 
-    residual = residual + _feed_forward(p["ff2"], L.rmsnorm(p["norm_ff2"], residual),
-                                        dtype) * 0.5
-    return L.rmsnorm(p["norm_out"], residual), scores, new_window, new_conv_state
+    y = _feed_forward(p["ff2"], L.rmsnorm(p["norm_ff2"], residual), dtype)
+    residual = residual + drop("ff2", y, cfg.dropout) * 0.5
+    return (L.rmsnorm(p["norm_out"], residual), scores, new_window, new_conv_state,
+            {"conv_bn": new_bn})
 
 
 def _state_mask(window: int, tq: int, offset: torch.Tensor) -> torch.Tensor:
@@ -318,8 +337,8 @@ def encoder_streaming_step(params: Params, batch_stats: Params, cfg: EncoderConf
     chunk_full = cfg.chunk_size  # 10
     chunk_red = chunk_full // n_red  # 5
 
-    x, new_subs = _subsampling(params["pre_encode"], batch_stats["pre_encode"], cfg,
-                               feats, (state.sub1, state.sub2), dtype)
+    x, new_subs, _ = _subsampling(params["pre_encode"], batch_stats["pre_encode"], cfg,
+                                  feats, (state.sub1, state.sub2), dtype)
     if x.shape[1] != chunk_full:
         raise ValueError(f"chunk gives {x.shape[1]} frames, expected {chunk_full}")
 
@@ -344,7 +363,7 @@ def encoder_streaming_step(params: Params, batch_stats: Params, cfg: EncoderConf
         if cfg.should_recompute_att_scores[i]:
             cached_scores = None
 
-        x, cached_scores, new_window, new_conv = _conformer_layer(
+        x, cached_scores, new_window, new_conv, _ = _conformer_layer(
             params["layers"][i], batch_stats["layers"][i], x, cfg=cfg,
             mhsa_window=mhsa_window, k_offset=k_offset, att_mask=att_mask,
             cached_scores=cached_scores, conv_state=state.conv[i], dtype=dtype)
@@ -395,9 +414,22 @@ def _offline_att_mask(t: int, chunk: int, left_context: int,
     return ~allowed
 
 
+DROPOUT_SITES = ("ff1", "att", "att_out", "conv", "ff2")
+
+
+def layer_generators(rng: int, layer: int, device: torch.device) -> dict[str, torch.Generator]:
+    """The dropout generators of one layer, one per site, each seeded from
+    (``rng``, layer, site) alone: the counterpart of the reference's key
+    split per layer (``tone_tpu/core/encoder.py:633-636``).  A forward run
+    again from the same ``rng`` (rematerialization) draws the same masks."""
+    return {site: torch.Generator(device=device).manual_seed(L.mix_seed(rng, layer, k))
+            for k, site in enumerate(DROPOUT_SITES)}
+
+
 def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
                     feats: torch.Tensor, lengths: torch.Tensor | None,
                     dtype=torch.bfloat16, blocked_attention: bool = True,
+                    rng: int | None = None, training: bool = False,
                     ) -> tuple[torch.Tensor, torch.Tensor, Params]:
     """Full-sequence forward with masks that exactly simulate streaming.
 
@@ -405,14 +437,18 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
     stateful layers), so the output is the chunked streaming step's.
     ``blocked_attention`` (the default) computes it as dense per-chunk
     blocks (``layers.mhsa_blocked``); ``False`` uses masked (T, T)
-    products.  Inference only: BatchNorms read their running statistics.
+    products.  In eval mode the BatchNorms read their running statistics;
+    with ``training`` they normalize with batch statistics and return
+    updated running ones, and dropout applies where ``rng`` (an integer
+    seed) is given.
 
     Args:
         feats: (B, T_feat, feat_in).
         lengths: (B,) valid feature-frame counts, or None for all-full.
 
     Returns:
-        (encoded (B, T_out, d_model), output lengths (B,), batch_stats).
+        (encoded (B, T_out, d_model), output lengths (B,), batch_stats:
+         updated in training, the ones given otherwise).
     """
     b, t_feat, _ = feats.shape
     dev = feats.device
@@ -424,8 +460,8 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
                                   cfg.subsampling_strides):
         out_len = torch.div(out_len - klen[0] + slen, stride[0], rounding_mode="floor") + 1
 
-    x, _ = _subsampling(params["pre_encode"], batch_stats["pre_encode"], cfg, feats, None,
-                        dtype)
+    x, _, pre_stats = _subsampling(params["pre_encode"], batch_stats["pre_encode"], cfg, feats,
+                                   None, dtype, training)
     r = cfg.reduction_factor
     t = x.shape[1]
     t_red = -(-t // r)
@@ -452,21 +488,26 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
 
     residual_pre_reduction = None
     cached_scores = None
+    layer_stats = []
     for i in range(cfg.n_layers):
         in_reduced = cfg.reduction_position < i <= cfg.upsample_position
         stateful = i >= cfg.mhsa_stateless_layers
         group = ("red_" if in_reduced else "full_") + ("ctx" if stateful else "noctx")
         if cfg.should_recompute_att_scores[i]:
             cached_scores = None
-        x, cached_scores, _, _ = _conformer_layer(
+        gens = layer_generators(rng, i, dev) if training and rng is not None else None
+        x, cached_scores, _, _, stats = _conformer_layer(
             params["layers"][i], batch_stats["layers"][i], x, cfg=cfg, mhsa_window=None,
             k_offset=0, att_mask=masks[group], cached_scores=cached_scores,
             conv_state=None, dtype=dtype, pad_mask=pad_red if in_reduced else pad_full,
-            blocked=blocks[group])
+            blocked=blocks[group], generators=gens, training=training)
+        layer_stats.append(stats)
         if i == cfg.reduction_position:
             residual_pre_reduction = x
             x, _ = _temporal_reduction(params["reduction"], x, None, cfg, dtype)
         if i == cfg.upsample_position:
             x = _temporal_upsample(x, residual_pre_reduction, r)
 
+    if training:
+        batch_stats = {"pre_encode": pre_stats, "layers": tuple(layer_stats)}
     return x, torch.clamp(len_red * r, max=t), batch_stats

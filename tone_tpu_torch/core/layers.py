@@ -131,15 +131,69 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def batchnorm(p: Params, stats: Params, x: torch.Tensor, *, channel_axis: int,
-              eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm (running statistics) over ``channel_axis``."""
+              training: bool = False, momentum: float = 0.1,
+              eps: float = 1e-5) -> tuple[torch.Tensor, Params]:
+    """BatchNorm over every axis except ``channel_axis``, in float32.
+
+    Eval mode reads the running statistics (a scale and shift).  Training
+    mode normalizes with the batch mean and biased variance (autograd runs
+    through both) and returns running statistics updated with torch's
+    momentum, ``(1 - m) * running + m * batch``, from the unbiased variance
+    ``var * n / (n - 1)``; they are detached.  Padded frames count as the
+    reference counts them (ROADMAP §C).
+
+    Returns (output in ``x``'s dtype, statistics: updated or the ones given).
+    """
     dtype = x.dtype
+    x32 = x.float()
     shape = [1] * x.ndim
     shape[channel_axis] = x.shape[channel_axis]
-    scale = p["scale"].float() * torch.rsqrt(stats["var"].float() + eps)
-    shift = p["bias"].float() - stats["mean"].float() * scale
-    y = x.float() * scale.reshape(shape) + shift.reshape(shape)
-    return y.to(dtype)
+    if training:
+        axes = tuple(i for i in range(x.ndim) if i != channel_axis)
+        mean = x32.mean(dim=axes)
+        var = x32.var(dim=axes, correction=0)
+        n = math.prod(x.shape[i] for i in axes)
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        new_stats = {"mean": (1 - momentum) * stats["mean"] + momentum * mean.detach(),
+                     "var": (1 - momentum) * stats["var"] + momentum * unbiased}
+    else:
+        mean, var = stats["mean"], stats["var"]
+        new_stats = stats
+    scale = p["scale"].float() * torch.rsqrt(var.float() + eps)
+    shift = p["bias"].float() - mean.float() * scale
+    y = x32 * scale.reshape(shape) + shift.reshape(shape)
+    return y.to(dtype), new_stats
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def mix_seed(*values: int) -> int:
+    """A 63-bit seed that is a pure function of ``values`` (splitmix64 over
+    each in turn): the port's stand-in for splitting a JAX key, so that a
+    dropout mask depends only on the seed, the layer and the site."""
+    z = 0x9E3779B97F4A7C15
+    for v in values:
+        z = (z ^ (int(v) & _MASK64)) + 0x9E3779B97F4A7C15 & _MASK64
+        z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & _MASK64
+        z = (z ^ (z >> 27)) * 0x94D049BB133111EB & _MASK64
+        z ^= z >> 31
+    return z >> 1
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: keeps each element with probability ``1 - rate``
+    and scales it by ``1 / (1 - rate)``.  The mask is drawn from
+    ``generator`` (on ``x``'s device), never from the global RNG, so that a
+    recomputed forward that seeds it alike draws the same mask.  The
+    identity when not training, at rate 0 or without a generator (as the
+    reference skips dropout without a key)."""
+    if not training or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -223,13 +277,18 @@ def mhsa(
     mask: torch.Tensor | None,
     cached_scores: torch.Tensor | None,
     compute_dtype=torch.bfloat16,
+    dropout_generator: torch.Generator | None = None,
+    dropout_rate: float = 0.0,
+    training: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotary multi-head attention with optional score reuse.
 
     Per-head LayerNorm on q/k, RoPE on the leading ``rope_dim`` features
     (keys offset by the cache length), masked scores set to -1e4 before the
     float32 softmax and the masked weights zeroed after it; the weights are
-    rounded to the compute dtype before the product with V.
+    rounded to the compute dtype before the product with V.  In training,
+    dropout (``dropout_rate``, masks from ``dropout_generator``) applies to
+    the float32 attention weights.
 
     Args:
         query: (B, Tq, D) pre-projection activations.
@@ -266,6 +325,7 @@ def mhsa(
         attn = torch.softmax(s.masked_fill(m, -10000.0), dim=-1).masked_fill(m, 0.0)
     else:
         attn = torch.softmax(s, dim=-1)
+    attn = dropout(attn, dropout_rate, training, dropout_generator)
 
     ctx = _mm(attn.to(compute_dtype), v).to(compute_dtype)
     ctx = ctx.transpose(1, 2).reshape(b, tq, d)
@@ -295,6 +355,9 @@ def mhsa_blocked(
     lengths: torch.Tensor,
     cached_scores: torch.Tensor | None,
     compute_dtype=torch.bfloat16,
+    dropout_generator: torch.Generator | None = None,
+    dropout_rate: float = 0.0,
+    training: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunk-local attention as dense per-chunk blocks (the offline path).
 
@@ -307,7 +370,8 @@ def mhsa_blocked(
 
     Returns (output (B, T, D), scores (B, H, n, c, w+c) float32); the scores
     are reusable as ``cached_scores`` by the score-sharing layers of the
-    same mask group, as ``mhsa``'s are.
+    same mask group, as ``mhsa``'s are.  Training dropout on the attention
+    weights as in ``mhsa``.
     """
     b, t, d = x.shape
     d_head = d // n_heads
@@ -350,6 +414,7 @@ def mhsa_blocked(
     m = ~(row_ok[:, :, :, None] & col_ok[:, :, None, :])[:, None]         # (B, 1, n, c, w+c)
 
     attn = torch.softmax(scores.float().masked_fill(m, -10000.0), dim=-1).masked_fill(m, 0.0)
+    attn = dropout(attn, dropout_rate, training, dropout_generator)
     ctx = _mm(attn.to(compute_dtype), vwin).to(compute_dtype)             # (B, H, n, c, dh)
     ctx = ctx.reshape(b, n_heads, tp, d_head).transpose(1, 2)[:, :t].reshape(b, t, d)
     return linear(p["linear_out"], ctx, compute_dtype), scores

@@ -117,45 +117,46 @@ def apply_streaming(variables: dict[str, Params], config: ToneConfig,
                                     encoder=enc_state)
 
 
-@torch.no_grad()
 def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch.Tensor,
                   lengths: torch.Tensor | None = None,
-                  constants: FrontendConstants | None = None, training: bool = False,
-                  blocked_attention: bool = True,
+                  constants: FrontendConstants | None = None, rng: int | None = None,
+                  training: bool = False, blocked_attention: bool = True,
                   ) -> tuple[torch.Tensor, torch.Tensor, dict[str, Params]]:
-    """Full-sequence forward of whole utterances (inference).
+    """Full-sequence forward of whole utterances: inference, or the training
+    forward.
 
     Args:
         audio: (B, T_samples) waveform on the device of ``variables``: an
             integer dtype is in the int16 range (scaled by 1/32767), a float
             dtype is taken as it is (already in [-1, 1]).
         lengths: (B,) valid sample counts, or None.
-        training: must be False; dropout and BatchNorm statistic updates come
-            with the training slice (ROADMAP A13).
+        rng: integer seed of the dropout masks when ``training`` (None: no
+            dropout, as the reference without a key).
+        training: BatchNorms on batch statistics, dropout, and autograd on;
+            otherwise the forward runs under ``torch.no_grad``.
         blocked_attention: chunk-local attention as per-chunk blocks (the
             default) or as masked (T, T) products.
 
     Returns:
         (logprobs (B, T_frames_out, vocab+1) float32, output lengths (B,),
-         batch_stats).
+         batch_stats: updated running statistics in training, the ones
+         given otherwise).
     """
-    if training:
-        raise NotImplementedError(
-            "apply_offline(training=True): dropout and BatchNorm statistic "
-            "updates are not ported yet (ROADMAP A13, training)")
-    if constants is None:
-        constants = get_frontend_constants(config.frontend, audio.device)
-    dtype = getattr(torch, config.compute_dtype)
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        if constants is None:
+            constants = get_frontend_constants(config.frontend, audio.device)
+        dtype = getattr(torch, config.compute_dtype)
 
-    if audio.dtype.is_floating_point:
-        wav = audio.to(torch.float32)
-    else:
-        wav = audio.to(torch.float32) / INT16_MAX
-    feats, feat_lens = log_mel_offline(wav, lengths, constants)
-    encoded, out_len, stats = encoder_offline(
-        variables["params"]["encoder"], variables["batch_stats"], config.encoder,
-        feats, feat_lens, dtype, blocked_attention=blocked_attention)
-    return _head(variables["params"]["head"], encoded), out_len, stats
+        if audio.dtype.is_floating_point:
+            wav = audio.to(torch.float32)
+        else:
+            wav = audio.to(torch.float32) / INT16_MAX
+        feats, feat_lens = log_mel_offline(wav, lengths, constants)
+        encoded, out_len, stats = encoder_offline(
+            variables["params"]["encoder"], variables["batch_stats"], config.encoder,
+            feats, feat_lens, dtype, blocked_attention=blocked_attention, rng=rng,
+            training=training)
+        return _head(variables["params"]["head"], encoded), out_len, stats
 
 
 # ---------------------------------------------------------------------------

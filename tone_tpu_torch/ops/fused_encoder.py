@@ -83,8 +83,8 @@ def encoder_streaming_step_fused(variables, plan: FusedLayerPlan, cfg: EncoderCo
     ``state.conv`` and ``state.mhsa`` are updated in place, as there."""
     params = variables["params"]["encoder"]
     stats = variables["batch_stats"]
-    x, new_subs = _subsampling(params["pre_encode"], stats["pre_encode"], cfg, feats,
-                               (state.sub1, state.sub2), dtype)
+    x, new_subs, _ = _subsampling(params["pre_encode"], stats["pre_encode"], cfg, feats,
+                                  (state.sub1, state.sub2), dtype)
     if x.shape[1] != cfg.chunk_size:
         raise ValueError(f"chunk gives {x.shape[1]} frames, expected {cfg.chunk_size}")
 
