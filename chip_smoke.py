@@ -19,20 +19,40 @@ prints one JSON line per phase:
             through ``StreamingCTCModel.forward_native`` for 64 streams over
             5 chunks, checked against the port on the CPU for 2 streams;
             every step must launch the GLU kernel 32 times;
-5. serve    the port's ``MultiStreamEngine`` with 16 slots, driven as the
+5. artifacts the same model's weights written as .safetensors
+            (plain and with the ``tone.`` prefix), .bin, the port's checkpoint
+            directory and .nemo (from the serving variables), each loaded with
+            ``StreamingCTCModel.from_local`` on the card: write and load
+            seconds, bytes, 64 streams x 5 chunks bit-equal to the directly
+            built model with 32 GLU kernel launches per step;
+            ``transcribe --checkpoint`` and ``$TONE_TPU_MODEL_DIR`` as
+            subprocesses, their phrases equal to the in-process pipeline's;
+            ``StreamingCTCPipeline.from_local`` over model.safetensors and an
+            lm.arpa made by ``python -m tone_tpu_torch lm --native``: its texts
+            equal to the directly built model's with the same decoder, its
+            logprobs within 0.1 of the same pipeline's on the CPU (the texts
+            of both and their character edit distance recorded);
+            ``export_streaming`` at B = 64, and at B = 1 in a process of its
+            own beside it (``--export-child``; seconds each), the B=64 program
+            loaded in a fresh process
+            (``--exported-child``): one step
+            within 1e-6 of the eager step with 32 launches, ms per step
+            against the eager step in turns; ``profiling.step_stats`` at
+            B = 64 (the two-point slope over chains of 10 and 60 steps);
+6. serve    the port's ``MultiStreamEngine`` with 16 slots, driven as the
             server's tick loop drives it: three streams of 3 s of seeded
             PCM, each must yield a final phrase, every tick must launch the
             kernel; the first ticks are profiled for device time per tick;
-6. fused_kernels  the fused Conformer-layer kernel against its plain
+7. fused_kernels  the fused Conformer-layer kernel against its plain
             version at full width for every layer kind of the step, at
             B = 64, 16 and 1, with its time, the plain version's, the bound
             and the share of the bound it reaches (bound / time);
-7. fused_step  the same model and audio as ``step`` through
+8. fused_step  the same model and audio as ``step`` through
             ``ops.fused_encoder.apply_streaming_fused``: 16 fused-layer
             launches per step and none of the GLU kernel, logprobs checked
             against the eager step on the card and the CPU plain path for 2
             streams, with step time, device time, device ops and idle share;
-8. beam_decode  ``DeviceBeamSearchCTCDecoder`` on the card at the serving
+9. beam_decode  ``DeviceBeamSearchCTCDecoder`` on the card at the serving
             defaults (beam width 32, n-best 8, max_len 2048, 64 rows per
             call) on seeded blank-heavy logprobs in every frame bucket 64 …
             2048, LM-free, with an order-3 ARPA LM (estimated by the port
@@ -51,24 +71,24 @@ prints one JSON line per phase:
             at every bucket); the agreement of the ARPA and probing fused
             texts, and of the fused top-1 with the port's host beam search
             (W=32, T=64);
-9. serve_beam  the ``serve`` phase's engine with the ``beam_decode`` LM
+10. serve_beam  the ``serve`` phase's engine with the ``beam_decode`` LM
             decoder for finals, the interim device beam arena (width 8), word
             timestamps, one stream with request hotwords and one with n-best
             4: every stream yields a final, phrase and word times are
             ordered, every tick launches the GLU kernel 32 times, and every
             final's text equals the port's CPU decoder on that phrase;
-10. serve_fused  the same cell with the fused decoder (``fusion=True``):
+11. serve_fused  the same cell with the fused decoder (``fusion=True``):
             warmup runs the fused finals ladder; one stream with request
             hotwords (stacked rows), one with n-best 4; every final equals
             the port's fused decoder on the CPU on that phrase's logprobs;
             every tick launches the GLU kernel 32 times; each finals call is
             timed in the run and alone;
-11. serve_host_beam  the same cell with the host ``BeamSearchCTCDecoder``
+12. serve_host_beam  the same cell with the host ``BeamSearchCTCDecoder``
             (the native C++ search, width 200, built by this run), carried
             host-beam interims and request hotwords on one stream: the
             native library must be built and used, every final equals a
             second decode of its logprobs;
-12. bulk    ``OfflineTranscriber`` over 16 utterances of speech-shaped
+13. bulk    ``OfflineTranscriber`` over 16 utterances of speech-shaped
             audio (the port's synthesizer, seeds 0-15, 4-60 s, 486 s in
             all) as one batch of 16, with the chunk scan and with the
             full-sequence forward: each run once to warm (its logprobs) and
@@ -83,7 +103,7 @@ prints one JSON line per phase:
             over a manifest of the utterances; ``python -m tone_tpu_torch
             transcribe --batch-size 16 --json`` on two FLACs written by the
             port's encoder;
-13. train   ``Trainer`` on the full-width ``ToneConfig()`` (seed-0 random
+14. train   ``Trainer`` on the full-width ``ToneConfig()`` (seed-0 random
             weights, bf16 compute, float32 parameters and AdamW state,
             dropout 0.1, blocked attention, lr 3e-4 over 20 steps) on one
             batch of 16 utterances of speech-shaped audio (seeds 100-115,
@@ -120,6 +140,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -1496,7 +1517,325 @@ def phase_train() -> dict:
                        "max_abs_err_streaming_vs_offline": deploy_err, "tol": STEP_TOL}}
 
 
-PHASES = ("kernels", "step", "serve", "fused_kernels", "fused_step", "beam_decode",
+# The artifacts phase: the full model's seed-0 weights written in every
+# format, loaded back with from_local and run at B = 64 over 5 chunks.
+ARTIFACT_BATCH, ARTIFACT_CHUNKS = 64, 5
+ARTIFACT_EXPORT_BATCHES = (1, ARTIFACT_BATCH)
+EXPORT_TOL = 1e-6   # exported vs eager step on the card (0 expected: the same kernels)
+ARTIFACT_STATS_STEPS = (10, 60)   # step_stats' two chains
+ARTIFACT_WORDS = "да нет привет спасибо пожалуйста хорошо алло слушаю вас завтра утром".split()
+
+
+def _artifact_run(model, chunks) -> tuple[list, int]:
+    """Logprobs of ``chunks`` streamed through ``model`` and B1's launches."""
+    import torch
+
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    glu_ff2.launches = 0
+    state, lps = None, []
+    for chunk in chunks:
+        lp, state = model.forward_native(chunk, state)
+        lps.append(lp)
+    torch.cuda.synchronize()
+    return lps, glu_ff2.launches
+
+
+def _size(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*")) if path.is_dir() else path.stat().st_size
+
+
+def _write_wav(path: Path, samples: np.ndarray) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(samples.astype("<i2").tobytes())
+
+
+def _edit_distance(a: str, b: str) -> int:
+    """Levenshtein distance of two strings."""
+    row = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, cb in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1, prev + (ca != cb))
+    return row[-1]
+
+
+def exported_child(tmp: str) -> int:
+    """The exported step in a fresh process (``--exported-child DIR``): load
+    the model and the B=64 artifact, run one step, then (once the parent
+    writes ``DIR/go``, so that nothing else runs) time it against the eager
+    step in turns (eager, exported, exported, eager); one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tone_tpu_torch.acoustic import StreamingCTCModel
+    from tone_tpu_torch.device import resolve_device
+    from tone_tpu_torch.export import load_exported
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    resolve_device("cuda")
+    tmp = Path(tmp)
+    t0 = time.perf_counter()
+    model = StreamingCTCModel.from_local(tmp / "model")
+    model_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_exported(tmp / "export_b64" / f"streaming_b{ARTIFACT_BATCH}.pt2")
+    load_s = time.perf_counter() - t0
+    chunk = torch.from_numpy(np.load(tmp / "chunk0.npy")).to(model.device)
+    glu_ff2.launches = 0
+    t0 = time.perf_counter()
+    lp, _ = fn(model.variables, chunk, model.init_state(ARTIFACT_BATCH))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = glu_ff2.launches
+    np.save(tmp / "exported_lp.npy", lp.cpu().numpy())
+
+    def ms_per_step(step, n=20):
+        state = model.init_state(ARTIFACT_BATCH)
+        for _ in range(3):
+            _, state = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, state = step(state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def eager(s):
+        return model.forward_native(chunk, s)
+
+    def exported(s):
+        return fn(model.variables, chunk, s)
+
+    deadline = time.monotonic() + 600
+    while not (tmp / "go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError("the parent never signalled")
+        time.sleep(0.05)
+    turns = [("eager", ms_per_step(eager)), ("exported", ms_per_step(exported)),
+             ("exported", ms_per_step(exported)), ("eager", ms_per_step(eager))]
+    emit({"model_load_s": model_s, "load_exported_s": load_s, "first_step_s": first_s,
+          "glu_launches": launches, "turns_ms": turns})
+    return 0
+
+
+def export_child(tmp: str) -> int:
+    """``export_streaming`` at B = 1 in a process of its own (``--export-child
+    DIR``), beside the parent's B = 64 export; one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tone_tpu_torch.acoustic import StreamingCTCModel
+    from tone_tpu_torch.device import resolve_device
+    from tone_tpu_torch.export import export_streaming
+
+    resolve_device("cuda")
+    model = StreamingCTCModel.from_local(Path(tmp) / "model")
+    t0 = time.perf_counter()
+    (path,) = export_streaming(model.variables, model.config, [1], Path(tmp) / "export_b1")
+    emit({"export_s": time.perf_counter() - t0, "bytes": _size(path)})
+    return 0
+
+
+def _communicate(procs: dict, timeout: float = 600) -> dict:
+    """Each process's standard output; raises if one failed."""
+    results = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"artifacts {name} exited {proc.returncode}: {stderr[-3000:]}")
+        results[name] = stdout
+    return results
+
+
+def phase_artifacts() -> dict:
+    import tempfile
+
+    import torch
+
+    from tone_tpu_torch.acoustic import StreamingCTCModel
+    from tone_tpu_torch.audio import read_audio
+    from tone_tpu_torch.audio.examples import synthesize_speech_like
+    from tone_tpu_torch.checkpoint import save_checkpoint
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder, DecoderType, GreedyCTCDecoder
+    from tone_tpu_torch.export import export_streaming
+    from tone_tpu_torch.interop import save_nemo_archive, save_torch_checkpoint, to_torch_state_dict
+    from tone_tpu_torch.pipeline import StreamingCTCPipeline
+    from tone_tpu_torch.profiling import step_stats
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    pcm = np.random.default_rng(0).integers(
+        -20000, 20000, (ARTIFACT_BATCH, cfg.audio_chunk_samples * ARTIFACT_CHUNKS)).astype(np.int32)
+    chunks = [torch.from_numpy(c).cuda() for c in np.split(pcm, ARTIFACT_CHUNKS, axis=1)]
+    direct = StreamingCTCModel(variables, cfg, device="cuda")
+    ref, ref_launches = _artifact_run(direct, chunks)
+    steps_launches = 2 * cfg.encoder.n_layers * ARTIFACT_CHUNKS   # 32 per step
+    if ref_launches != steps_launches:
+        raise AssertionError(f"artifacts: {ref_launches} B1 launches in the direct run")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "tone_tpu_torch"]
+    utterance = synthesize_speech_like(300, (2.0, 1.5)).astype(np.int32)
+    out = {"phase": "artifacts", "nvidia_smi": nvidia_smi(), "config": "ToneConfig() bf16",
+           "batch": ARTIFACT_BATCH, "chunks": ARTIFACT_CHUNKS}
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            # Write every format but the .nemo; export at B = 64 here and at
+            # B = 1 in a process of its own (``--export-child``); then, beside
+            # the .nemo's write (from the serving variables, as the export CLI
+            # writes it), start the processes: the B=64 program loaded fresh
+            # (``--exported-child``), `transcribe` with --checkpoint and with
+            # $TONE_TPU_MODEL_DIR, and `lm` for the pipeline below.
+            writers = {
+                "safetensors": (tmp / "model.safetensors",
+                                lambda p: save_torch_checkpoint(p, variables, cfg)),
+                "safetensors_tone_prefix": (
+                    tmp / "prefixed.safetensors",
+                    lambda p: save_torch_checkpoint(p, variables, cfg, prefix="tone.")),
+                "bin": (tmp / "model.bin",
+                        lambda p: torch.save(to_torch_state_dict(variables, cfg), p)),
+                "directory": (tmp / "model", lambda p: save_checkpoint(p, variables, cfg)),
+                "nemo": (tmp / "model.nemo",
+                         lambda p: save_nemo_archive(p, direct.variables, cfg)),
+            }
+            formats = {}
+
+            def timed_write(name):
+                path, write = writers[name]
+                t0 = time.perf_counter()
+                write(path)
+                formats[name] = {"write_s": time.perf_counter() - t0, "bytes": _size(path)}
+
+            for name in ("safetensors", "safetensors_tone_prefix", "bin", "directory"):
+                timed_write(name)
+            pipes = dict(cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            me = [sys.executable, os.path.abspath(__file__)]
+            procs["export_b1"] = subprocess.Popen([*me, "--export-child", str(tmp)], **pipes)
+            np.save(tmp / "chunk0.npy", chunks[0].cpu().numpy())
+            t0 = time.perf_counter()
+            (path,) = export_streaming(direct.variables, cfg, [ARTIFACT_BATCH],
+                                       tmp / f"export_b{ARTIFACT_BATCH}")
+            export = {f"b{ARTIFACT_BATCH}": {"export_s": time.perf_counter() - t0,
+                                             "bytes": _size(path)}}
+
+            _write_wav(tmp / "utt.wav", utterance)
+            (tmp / "pipe").mkdir()
+            os.link(tmp / "model.safetensors", tmp / "pipe" / "model.safetensors")
+            (tmp / "corpus.txt").write_text("\n".join(
+                " ".join(np.random.default_rng(k).choice(ARTIFACT_WORDS, 2 + k % 5))
+                for k in range(2000)) + "\n", encoding="utf-8")
+            procs["exported_child"] = subprocess.Popen([*me, "--exported-child", str(tmp)],
+                                                       **pipes)
+            procs["checkpoint_flag"] = subprocess.Popen(
+                [*cli, "transcribe", str(tmp / "utt.wav"), "--json", "--checkpoint",
+                 str(tmp / "model.safetensors")], **pipes)
+            procs["model_dir_env"] = subprocess.Popen(
+                [*cli, "transcribe", str(tmp / "utt.wav"), "--json"],
+                env=dict(os.environ, TONE_TPU_MODEL_DIR=str(tmp / "model")), **pipes)
+            procs["lm"] = subprocess.Popen(
+                [*cli, "lm", str(tmp / "corpus.txt"), str(tmp / "pipe" / "lm.arpa"), "--native"],
+                **pipes)
+            timed_write("nemo")
+
+            # Load every format on the card: bit-equal to the direct model.
+            for name, (path, _) in writers.items():
+                t0 = time.perf_counter()
+                model = StreamingCTCModel.from_local(path)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                lps, launches = _artifact_run(model, chunks)
+                equal = all(torch.equal(a, b) for a, b in zip(lps, ref))
+                formats[name].update({"load_s": load_s, "glu_launches": launches,
+                                      "bit_equal": equal, "device": str(model.device)})
+                if not equal or launches != steps_launches or model.device.type != "cuda":
+                    raise AssertionError(f"artifacts {name}: {formats[name]}")
+                del model, lps
+            out["formats"] = formats
+
+            results = _communicate({k: procs[k] for k in ("checkpoint_flag", "model_dir_env",
+                                                          "lm", "export_b1")})
+            export["b1"] = json.loads(results["export_b1"].strip().splitlines()[-1])
+
+            greedy = StreamingCTCPipeline(direct, decoder=GreedyCTCDecoder())
+            want = [{"text": p.text, "start_time": p.start_time, "end_time": p.end_time}
+                    for p in greedy.forward_offline(read_audio(tmp / "utt.wav"))]
+            for name in ("checkpoint_flag", "model_dir_env"):
+                (record,) = [json.loads(ln) for ln in results[name].splitlines()
+                             if ln.startswith("{")]
+                if record["phrases"] != want:
+                    raise AssertionError(f"artifacts CLI {name}: {record['phrases']} != {want}")
+            out["cli"] = {"phrases": want, "lm": json.loads(results["lm"])}
+
+            # The pipeline from the folder (model.safetensors, lm.arpa): its
+            # texts equal those of the directly built model with the same LM
+            # decoder on the card; its acoustic model on the card within the
+            # step's bf16 tolerance of the same pipeline's on the CPU (the
+            # texts of random weights are long near-ties, which that
+            # difference may flip: both are recorded, with their character
+            # edit distance).
+            pipes = {dev: StreamingCTCPipeline.from_local(
+                tmp / "pipe", decoder_type=DecoderType.BEAM_SEARCH, device=dev)
+                for dev in ("cuda", "cpu")}
+            direct_pipe = StreamingCTCPipeline(
+                direct, decoder=BeamSearchCTCDecoder.from_local(tmp / "pipe" / "lm.arpa"))
+            texts, seconds = {}, {}
+            for name, pipe in (("cuda", pipes["cuda"]), ("direct", direct_pipe),
+                               ("cpu", pipes["cpu"])):
+                t0 = time.perf_counter()
+                texts[name] = [p.text for p in pipe.forward_offline(utterance)]
+                seconds[name] = time.perf_counter() - t0
+            padded = np.pad(utterance, (cfg.padding, cfg.padding))
+            padded = np.pad(padded, (0, -len(padded) % cfg.audio_chunk_samples))[None]
+            lps = {}
+            for dev, pipe in pipes.items():
+                state, outs = None, []
+                for k in range(0, padded.shape[1], cfg.audio_chunk_samples):
+                    lp, state = pipe.model.forward_native(
+                        padded[:, k:k + cfg.audio_chunk_samples], state)
+                    outs.append(lp.cpu())
+                lps[dev] = torch.cat(outs, dim=1)
+            lp_err = (lps["cuda"] - lps["cpu"]).abs().max().item()
+            out["pipeline"] = {"texts": texts, "seconds": seconds,
+                               "decoder": type(pipes["cuda"].decoder).__name__,
+                               "native": pipes["cuda"].decoder._use_native,
+                               "card_vs_cpu_char_edits": _edit_distance(
+                                   " ".join(texts["cuda"]), " ".join(texts["cpu"])),
+                               "card_vs_cpu_max_abs_logprob_err": lp_err, "tol": STEP_TOL}
+            if texts["cuda"] != texts["direct"] or not lp_err <= STEP_TOL:
+                raise AssertionError(f"artifacts pipeline: {out['pipeline']}")
+
+            # The exported program: nothing else runs while the child times it.
+            (tmp / "go").touch()
+            t0 = time.perf_counter()
+            child = json.loads(_communicate({"exported_child": procs["exported_child"]})[
+                "exported_child"].strip().splitlines()[-1])
+            export["child_wait_s"] = time.perf_counter() - t0
+            err = float(np.abs(np.load(tmp / "exported_lp.npy") - ref[0].cpu().numpy()).max())
+            export.update({"child": child, "max_abs_err_vs_eager": err, "tol": EXPORT_TOL})
+            if child["glu_launches"] != 2 * cfg.encoder.n_layers or not err <= EXPORT_TOL:
+                raise AssertionError(f"artifacts export: {export}")
+            export["eager_ms"] = [ms for kind, ms in child["turns_ms"] if kind == "eager"]
+            export["exported_ms"] = [ms for kind, ms in child["turns_ms"] if kind == "exported"]
+            out["export"] = export
+        finally:
+            for proc in procs.values():  # stop what a failed check left running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    stats = step_stats(direct, ARTIFACT_BATCH, steps=ARTIFACT_STATS_STEPS)
+    out["step_stats"] = {"batch": stats.batch, "ms_per_step": stats.seconds_per_step * 1e3,
+                         "streams_realtime": stats.rtfx, "steps": list(ARTIFACT_STATS_STEPS)}
+    return out
+
+PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train")
 
 
@@ -1524,7 +1863,9 @@ def kernel_summary(out: dict) -> dict:
         "bulk_launches_per_batch": {r["forward"]: r["glu_launches_per_batch"]
                                     for r in bulk["runs"]},
         "bulk_m": [{"m": c["m"], **{k: c[k] for k in keys}}
-                   for c in kernels["cases"] if c["m"] in BULK_MS]}, {
+                   for c in kernels["cases"] if c["m"] in BULK_MS],
+        **({"exported_launches_per_step": out["artifacts"]["export"]["child"]["glu_launches"]}
+           if "artifacts" in out else {})}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",
@@ -1559,7 +1900,14 @@ def main() -> int:
                         help="comma-separated phases to run after the build (default: "
                              "all; the kernel summary line needs kernels, serve, "
                              "fused_kernels, fused_step and bulk)")
+    # the artifacts phase's processes
+    parser.add_argument("--exported-child", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--export-child", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.exported_child:
+        return exported_child(args.exported_child)
+    if args.export_child:
+        return export_child(args.export_child)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")

@@ -84,7 +84,7 @@ def test_beam_advance_state_matches_jax(case):
 @pytest.mark.parametrize("case", CASES)
 def test_texts_match_jax(case):
     lp, lengths = _batch(case, seed=10 + CASES.index(case))
-    assert (T.beam_search_decode(lp, lengths, beam_width=W, max_len=L)
+    assert (T.beam_search_decode(lp, lengths, beam_width=W, max_len=L, device="cpu")
             == J.beam_search_decode(lp, lengths, beam_width=W, max_len=L))
 
 
@@ -136,8 +136,9 @@ def test_chunk_split_invariance(split):
 
 def test_length_masking_equals_individual():
     lp, lengths = _batch("random", seed=3)
-    batched = T.beam_search_decode(lp, lengths, beam_width=W, max_len=L)
-    single = [T.beam_search_decode(lp[i:i + 1, :n], beam_width=W, max_len=L)[0]
+    batched = T.beam_search_decode(lp, lengths, beam_width=W, max_len=L, device="cpu")
+    single = [T.beam_search_decode(lp[i:i + 1, :n], beam_width=W, max_len=L,
+                                   device="cpu")[0]
               for i, n in enumerate(lengths)]
     assert batched == single == J.beam_search_decode(lp, lengths, beam_width=W, max_len=L)
 
@@ -148,7 +149,7 @@ def test_token_buffer_overflow_truncates():
     js = J.beam_advance(J.init_beam_state(B, 4, 5), lp, lengths)
     ts = T.beam_advance(T.init_beam_state(B, 4, 5), lp, lengths)
     assert_states_equal(js, ts)
-    full = T.beam_search_decode(lp, lengths, beam_width=4, max_len=L)
+    full = T.beam_search_decode(lp, lengths, beam_width=4, max_len=L, device="cpu")
     for hyps, text in zip(T.beam_nbest(ts, 1), full):
         assert len(hyps[0][0]) <= 5 and hyps[0][0] == text[:5].strip()
 
@@ -234,3 +235,14 @@ def test_hot_beam_advance_matches_jax(case, stacked):
         np.testing.assert_allclose(getattr(ts, f).numpy(), np.asarray(getattr(js, f)),
                                    atol=1e-5)
     assert_nbest_equal(J.hot_beam_nbest(js, W), T.hot_beam_nbest(ts, W))
+
+
+def test_decode_runs_on_cuda_unless_asked(monkeypatch):
+    """Given no device, the batch decode resolves ``cuda``, as JAX decodes on
+    its device: without a GPU it raises instead of falling back to the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lp, lengths = _batch("random", seed=4)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        T.beam_search_decode(lp, lengths, beam_width=W, max_len=L)

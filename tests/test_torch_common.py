@@ -31,12 +31,51 @@ TINY_ENCODER = dict(
 )
 
 
-def tiny_configs(compute_dtype: str = "float32"):
+# The model artifacts' tests (checkpoints, interop, ONNX, export): four
+# layers, the recompute flags mixed (layer 1 reuses layer 0's scores), the
+# reduction after layer 1 and the upsample after layer 2 (a reduced stateful
+# window in layer 2, a full one in layer 3).
+ARTIFACT_ENCODER = dict(
+    n_layers=4, d_model=64, n_heads=4, rope_dim=8, ff_expansion_factor=2,
+    conv_kernel_size=7, subsampling_conv_channels=(4, 8), mhsa_stateless_layers=2,
+    reduction_position=1, upsample_position=2,
+    should_recompute_att_scores=(True, False, True, True),
+)
+
+
+def tiny_configs(compute_dtype: str = "float32", encoder: dict = TINY_ENCODER):
     """(JAX ToneConfig, port ToneConfig) of the tiny model."""
-    return (jcfg.ToneConfig(encoder=jcfg.EncoderConfig(**TINY_ENCODER),
+    return (jcfg.ToneConfig(encoder=jcfg.EncoderConfig(**encoder),
                             compute_dtype=compute_dtype),
-            tcfg.ToneConfig(encoder=tcfg.EncoderConfig(**TINY_ENCODER),
+            tcfg.ToneConfig(encoder=tcfg.EncoderConfig(**encoder),
                             compute_dtype=compute_dtype))
+
+
+def leaves_with_paths(tree, path: str = "") -> list[tuple[str, object]]:
+    """(path, leaf) of every leaf of a tree of dicts, lists and tuples, in
+    order (dict keys sorted), for comparing two packages' trees."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves_with_paths(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in leaves_with_paths(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def as_float32(x) -> np.ndarray:
+    """A JAX array, numpy array or torch tensor (bf16 too) as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float().numpy()
+    return np.asarray(np.asarray(x).astype(np.float32))
+
+
+def assert_trees_equal(a, b) -> None:
+    """Same leaf paths and bit-equal float32 values."""
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        x, y = as_float32(x), as_float32(y)
+        assert x.shape == y.shape, path
+        np.testing.assert_array_equal(x, y, err_msg=path)
 
 
 def tiny_variables(jax_config, torch_config, seed: int = 0):

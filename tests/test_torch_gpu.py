@@ -763,3 +763,62 @@ def test_ctc_loss_on_card_matches_cpu(cuda, reduction):
     assert torch.allclose(vg, vc, rtol=1e-5, atol=0)
     assert (gg - gc).abs().max().item() <= 3e-5 * gc.abs().max().item()
     assert torch.all(gg[3] == 0) and torch.all(gc[3] == 0)
+
+
+# ---------------------------------------------------------------------------
+# Model artifacts: from_local and the exported step on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", ["model.safetensors", "model.bin", "model"])
+def test_from_local_on_card_is_bit_equal_to_direct(cuda, tmp_path, fmt):
+    """A loaded artifact gives the directly built model's logprobs to the bit,
+    with B1 twice per layer and step."""
+    from tone_tpu_torch.checkpoint import save_checkpoint
+    from tone_tpu_torch.interop import save_torch_checkpoint, to_torch_state_dict
+
+    cfg, variables = _tiny_bf16()
+    path = tmp_path / fmt
+    if fmt == "model":
+        save_checkpoint(path, variables, cfg)
+    elif fmt.endswith(".bin"):
+        torch.save(to_torch_state_dict(variables, cfg), path)
+    else:
+        save_torch_checkpoint(path, variables, cfg, prefix="tone.")
+    loaded = StreamingCTCModel.from_local(path, config=None if fmt == "model" else cfg)
+    assert loaded.device.type == "cuda"
+    direct = StreamingCTCModel(variables, cfg, device=cuda)
+    wav = np.random.default_rng(3).integers(-20000, 20000, (3, 2400 * 3)).astype(np.int32)
+    sl = sd = None
+    for i in range(3):
+        chunk = wav[:, i * 2400:(i + 1) * 2400]
+        before = glu_ff2.launches
+        ll, sl = loaded.forward_native(chunk, sl)
+        torch.cuda.synchronize()
+        assert glu_ff2.launches == before + 2 * cfg.encoder.n_layers
+        ld, sd = direct.forward_native(chunk, sd)
+        assert torch.equal(ll, ld)
+
+
+def test_exported_program_on_card_equals_eager(cuda, tmp_path):
+    """The exported bf16 step runs kernel B1 (the registered op's CUDA
+    kernel, twice per layer and step; never the plain version) and gives
+    the eager step's logprobs and state to the bit."""
+    from tone_tpu_torch.export import export_streaming, load_exported
+
+    cfg, variables = _tiny_bf16()
+    model = StreamingCTCModel(variables, cfg, device=cuda)
+    (path,) = export_streaming(model.variables, cfg, [3], tmp_path)
+    fn = load_exported(path)
+    wav = np.random.default_rng(4).integers(-20000, 20000, (3, 2400 * 3)).astype(np.int32)
+    se, sx = model.init_state(3), model.init_state(3)
+    for i in range(3):
+        chunk = torch.from_numpy(wav[:, i * 2400:(i + 1) * 2400]).to(cuda)
+        le, se = model.forward_native(chunk, se)
+        before = glu_ff2.launches
+        lx, sx = fn(model.variables, chunk, sx)
+        torch.cuda.synchronize()
+        assert glu_ff2.launches == before + 2 * cfg.encoder.n_layers
+        assert torch.equal(lx, le)
+    assert torch.equal(sx.encoder.conv, se.encoder.conv)
+    assert torch.equal(sx.encoder.mhsa, se.encoder.mhsa)

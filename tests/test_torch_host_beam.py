@@ -70,13 +70,13 @@ def _logprobs(seed, t=50, words=True):
 
 def test_native_library_is_the_ports_own():
     assert NB.build_native() and NB.native_available()
-    lib = NB._LIB.resolve()
+    lib = NB.library_path().resolve()
     assert lib.is_relative_to(REPO / "tone_tpu_torch") and lib.exists()
     assert NB._SRC.resolve() == REPO / "tone_tpu_torch/decoding/native/src/tone_decode.cpp"
     assert lib.name != "libtone_decode.so"
     import ctypes
 
-    assert NB._load()._name == str(NB._LIB)
+    assert NB._load()._name == str(NB.library_path())
     assert isinstance(NB._load(), ctypes.CDLL)
 
 

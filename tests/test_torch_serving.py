@@ -281,8 +281,8 @@ def test_cli_serve_flags_and_checkpoint():
          "--idle-evict-seconds", "5", "--force-evict-grace", "2", "--drain-grace", "1",
          "--metrics-port", "0", "--host", "127.0.0.1"])
     assert (args.slots, args.interim, args.max_candidates) == (4, True, 0)
-    with pytest.raises(NotImplementedError, match="A14"):
-        main(["serve", "--checkpoint", "model", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no_such_model"):
+        main(["serve", "--checkpoint", "no_such_model", "--device", "cpu"])
 
 
 def test_websocket_round_trip(tiny):

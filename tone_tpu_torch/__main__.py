@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port (port of
-``tone_tpu/__main__.py``): the ``serve``, ``transcribe``, ``eval`` and
-``align`` subcommands, with the flags the port supports.
+``tone_tpu/__main__.py``): the ``serve``, ``transcribe``, ``eval``, ``align``,
+``lm`` and ``export`` subcommands, with the flags the port supports.
 
   python -m tone_tpu_torch serve [--port 8080] [--slots 256] [...]
   python -m tone_tpu_torch serve --decoder device-beam --lm lm.arpa [--fused-lm] [...]
@@ -8,27 +8,40 @@
   python -m tone_tpu_torch transcribe AUDIO... [--batch-size N [--offline-forward]] [--json]
   python -m tone_tpu_torch eval MANIFEST [--batch-size N] [--server ws://...]
   python -m tone_tpu_torch align MANIFEST [--out words.jsonl] [--batch-size 16]
+  python -m tone_tpu_torch lm CORPUS OUT [--order 3] [--binary probing|trie] [--native]
+  python -m tone_tpu_torch export DIR [--batch-sizes 1 8 64] [--nemo]
 
-With no ``--checkpoint`` the model takes random weights from
-``torch.Generator().manual_seed(0)``; the JAX CLI draws its random weights
-from ``jax.random.PRNGKey(0)``, so the two CLIs run different weights and
-give different transcripts.  Loading a checkpoint, ``--data-parallel``,
-``--chunk-ms`` and ``--compile-cache`` wait for the interop slice (ROADMAP
-A14).  Everything runs on the GPU; ``--device cpu`` asks for the CPU.
+The model comes from ``--checkpoint`` (default ``$TONE_TPU_MODEL_DIR``): the
+port's checkpoint directory, a reference torch checkpoint (.safetensors,
+.bin, .pt) or the reference's ``model.onnx``; the same file serves the same
+model in the JAX CLI.  Without one the model takes random weights from
+``torch.Generator().manual_seed(0)``, which differ from the JAX CLI's
+(``jax.random.PRNGKey(0)``).  ``--chunk-ms`` sets the streaming chunk,
+``--compile-cache`` (default ``$TONE_TPU_COMPILE_CACHE``) the directory the
+kernels build into.  ``--data-parallel`` waits for the data-parallel slice
+(ROADMAP A14); ``download`` needs the network and is not offered.
+Everything runs on the GPU; ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
     """The model and decoder flags shared by every subcommand."""
-    p.add_argument("--checkpoint", type=Path, default=None,
-                   help="not supported yet (ROADMAP A14); default: random "
-                        "weights from seed 0")
+    # TONE_TPU_MODEL_DIR mirrors the reference demo's LOAD_FROM_FOLDER env
+    # var (reference tone/demo/website.py:25-33) for container deployments.
+    env_dir = os.environ.get("TONE_TPU_MODEL_DIR")
+    p.add_argument("--checkpoint", type=Path,
+                   default=Path(env_dir) if env_dir else None,
+                   help="the port's checkpoint dir, a torch checkpoint file "
+                        "(.safetensors/.bin/.pt) or model.onnx (default: "
+                        "$TONE_TPU_MODEL_DIR, else random weights from seed 0 "
+                        "for smoke testing)")
     p.add_argument("--decoder", choices=["greedy", "beam", "device-beam"],
                    default="greedy",
                    help="beam = host CTC prefix beam search with LM shallow "
@@ -49,6 +62,13 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--beam-width", type=int, default=None,
                    help="beam width override (default 200 for beam, 32 for "
                         "device-beam)")
+    p.add_argument("--chunk-ms", type=int, default=300)
+    env_cache = os.environ.get("TONE_TPU_COMPILE_CACHE")
+    p.add_argument("--compile-cache", type=Path,
+                   default=Path(env_cache) if env_cache else None,
+                   help="directory the CUDA kernels and C++ libraries build "
+                        "into (default: $TONE_TPU_COMPILE_CACHE), so repeat "
+                        "runs and server restarts skip the builds")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
 
@@ -140,34 +160,79 @@ def build_parser() -> argparse.ArgumentParser:
                       help="output JSONL (default: stdout)")
     p_al.add_argument("--batch-size", type=int, default=16)
     _add_model_args(p_al)
+
+    p_lm = sub.add_parser(
+        "lm", help="estimate an n-gram LM (modified Kneser-Ney, lmplz-style)")
+    p_lm.add_argument("corpus", type=Path,
+                      help="text corpus, one sentence per line")
+    p_lm.add_argument("out", type=Path,
+                      help="output LM: .arpa/.arpa.gz text or KenLM binary")
+    p_lm.add_argument("--order", type=int, default=3)
+    p_lm.add_argument("--binary", choices=["probing", "trie"], default="probing",
+                      help="binary flavor when out is not .arpa")
+    p_lm.add_argument("--quant", type=int, nargs=2, metavar=("PROB", "BACKOFF"),
+                      default=None,
+                      help="with --binary trie: quantize probs/backoffs to "
+                           "this many bits (build_binary -q/-b)")
+    p_lm.add_argument("--bhiksha", type=int, default=None,
+                      help="with --binary trie: Bhiksha pointer compression "
+                           "up to this many bits (build_binary -a)")
+    p_lm.add_argument("--prune", type=int, nargs="+", default=None,
+                      help="per-order count thresholds (lmplz --prune)")
+    p_lm.add_argument("--ppl", type=Path, default=None,
+                      help="held-out text file: report perplexity of the "
+                           "built model")
+    p_lm.add_argument("--native", action="store_true",
+                      help="estimate with the C++ estimator (the scale choice "
+                           "for 10M+-token corpora; the same model up to float "
+                           "rounding)")
+
+    p_ex = sub.add_parser("export", help="torch.export artifacts of the streaming step")
+    p_ex.add_argument("out_dir", type=Path)
+    p_ex.add_argument("--batch-sizes", type=int, nargs="+", default=[1, 8, 64])
+    p_ex.add_argument("--nemo", action="store_true",
+                      help="also write a NeMo-restorable .nemo archive "
+                           "(reference tone/scripts/export.py:528-549)")
+    _add_model_args(p_ex)
     return parser
 
 
 def build_model(args):
-    """(variables, config, decoder) from the model flags: random weights
-    from seed 0, float32 on the CPU; the decoder on ``--device``."""
+    """(variables, config, decoder) from the model flags: the checkpoint's
+    weights on ``--device``, or random weights from seed 0 (float32 on the
+    CPU); the decoder on ``--device``."""
     import torch
 
     from tone_tpu_torch.config import ToneConfig
-    from tone_tpu_torch.core.model import init_model_params
     from tone_tpu_torch.decoder import build_decoder, parse_hotwords
 
-    if args.checkpoint is not None:
-        raise NotImplementedError(
-            "--checkpoint: loading checkpoints is not ported to "
-            "tone_tpu_torch yet (ROADMAP queue A14)")
+    if args.compile_cache is not None:
+        from tone_tpu_torch.export import enable_compilation_cache
+
+        enable_compilation_cache(args.compile_cache)
     decoder = build_decoder(args.decoder, lm=args.lm, fused_lm=args.fused_lm,
                             beam_width=args.beam_width,
                             hotwords=parse_hotwords(args.hotwords),
                             hotword_weight=args.hotword_weight, device=args.device)
-    config = ToneConfig()
-    print("warning: no checkpoint given — using RANDOM weights")
-    return init_model_params(torch.Generator().manual_seed(0), config), config, decoder
+    if args.checkpoint is not None:
+        from tone_tpu_torch.acoustic import StreamingCTCModel
+
+        model = StreamingCTCModel.from_local(args.checkpoint, device=args.device)
+        variables, config = model.variables, model.config
+    else:
+        from tone_tpu_torch.core.model import init_model_params
+
+        print("warning: no checkpoint given — using RANDOM weights")
+        config = ToneConfig()
+        variables = init_model_params(torch.Generator().manual_seed(0), config)
+    if args.chunk_ms != 300:
+        config = config.with_chunk_duration_ms(args.chunk_ms)
+    return variables, config, decoder
 
 
 def build_engine(args):
-    """The ``serve`` subcommand's engine from its parsed arguments (random
-    weights from seed 0; not warmed up)."""
+    """The ``serve`` subcommand's engine from its parsed arguments (the
+    model of ``build_model``; not warmed up)."""
     from tone_tpu_torch.runtime.engine import MultiStreamEngine
 
     variables, config, decoder = build_model(args)
@@ -355,6 +420,96 @@ def _run_align(args) -> None:
         print(json.dumps({"out": str(args.out), "utterances": n_done, "failed": n_failed}))
 
 
+def _run_lm(args) -> None:
+    import re
+
+    from tone_tpu_torch.decoding.estimate import estimate_from_text, perplexity, write_arpa
+    from tone_tpu_torch.decoding.lm import ArpaLM
+
+    name = args.out.name
+    is_arpa = name.endswith(".arpa") or name.endswith(".arpa.gz")
+    if (args.quant or args.bhiksha) and (args.binary != "trie" or is_arpa):
+        # a pure argument error: fail before the (possibly minutes-long)
+        # corpus counting, not after
+        raise SystemExit("--quant/--bhiksha require --binary trie and a "
+                         "binary output path")
+    if args.native:
+        from tone_tpu_torch.decoding.native.estimate import (
+            estimate_arpa_native,
+            native_available,
+        )
+
+        if not native_available():
+            raise SystemExit("--native: no C++ toolchain available")
+        if is_arpa and not name.endswith(".gz"):
+            # native writes the final ARPA directly — no Python tables
+            estimate_arpa_native(args.corpus, args.out, order=args.order, prune=args.prune)
+            tables = None
+        else:
+            # native ARPA to a sibling temp, then convert to the requested
+            # artifact through the standard readers and writers
+            import tempfile
+
+            with tempfile.NamedTemporaryFile(suffix=".arpa", dir=args.out.parent,
+                                             delete=False) as tf:
+                tmp_arpa = Path(tf.name)
+            try:
+                estimate_arpa_native(args.corpus, tmp_arpa, order=args.order,
+                                     prune=args.prune)
+                tables = ArpaLM.from_file(tmp_arpa)._ngrams
+            finally:
+                tmp_arpa.unlink(missing_ok=True)
+    else:
+        with open(args.corpus, encoding="utf-8") as f:
+            tables = estimate_from_text(f, order=args.order, prune=args.prune)
+    if tables is None:
+        pass  # already written (native direct-ARPA path)
+    elif is_arpa:
+        write_arpa(tables, args.out)
+    elif args.binary == "trie":
+        from tone_tpu_torch.decoding.kenlm_trie import write_kenlm_trie
+
+        write_kenlm_trie(tables, args.out,
+                         quant_bits=tuple(args.quant) if args.quant else None,
+                         bhiksha_bits=args.bhiksha)
+    else:
+        from tone_tpu_torch.decoding.kenlm_binary import write_kenlm_binary
+
+        write_kenlm_binary(tables, args.out)
+    if tables is None and args.ppl is not None:
+        tables = ArpaLM.from_file(args.out)._ngrams
+    if tables is None:
+        # native direct-ARPA path without --ppl: counts from the header
+        with open(args.out, encoding="utf-8") as f:
+            head = f.read(4096)
+        counts = [int(m) for m in re.findall(r"ngram \d+=(\d+)", head)]
+        report = {"out": str(args.out), "order": args.order, "ngrams": counts}
+    else:
+        report = {"out": str(args.out), "order": args.order,
+                  "ngrams": [len(t) for t in tables]}
+    if args.ppl is not None:
+        with open(args.ppl, encoding="utf-8") as f:
+            held_out = [line.split() for line in (ln.strip().lower() for ln in f) if line]
+        report["ppl"] = round(perplexity(ArpaLM(tables), held_out), 3)
+    print(json.dumps(report))
+
+
+def _run_export(args) -> None:
+    from tone_tpu_torch.export import export_streaming
+
+    pipeline = build_pipeline(args)
+    model = pipeline.model
+    written = export_streaming(model.variables, model.config, args.batch_sizes, args.out_dir)
+    if args.nemo:
+        from tone_tpu_torch.interop import save_nemo_archive
+
+        nemo_path = args.out_dir / "model.nemo"
+        save_nemo_archive(nemo_path, model.variables, model.config)
+        written = [*written, nemo_path]
+    for p in written:
+        print(p)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.command == "serve":
@@ -377,6 +532,10 @@ def main(argv: list[str] | None = None) -> None:
         _run_eval(args)
     elif args.command == "align":
         _run_align(args)
+    elif args.command == "lm":
+        _run_lm(args)
+    elif args.command == "export":
+        _run_export(args)
 
 
 if __name__ == "__main__":

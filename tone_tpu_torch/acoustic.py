@@ -11,13 +11,16 @@ Two call paths:
   and out, the flat (B, 219729) fp16 state blob, the reference's input
   validation.  It never mutates the caller's arrays.
 
-``from_local`` and ``from_hugging_face`` wait for the interop slice
-(ROADMAP A14): build the model from ``bridge.from_jax_variables`` or
+``from_local`` loads the port's checkpoint directory, a reference torch
+checkpoint (``.safetensors``, ``.bin``/``.pt``), the reference's
+``model.onnx`` or a ``.nemo`` archive; ``from_hugging_face`` needs the network and raises.  A model
+also builds from ``bridge.from_jax_variables`` or
 ``core.model.init_model_params``.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -96,6 +99,62 @@ class StreamingCTCModel:
         self.device = resolve_device(device)
         self.variables = to_device(cast_params_for_inference(variables, self.config),
                                    self.device)
+
+    # -- factories ---------------------------------------------------------
+
+    @classmethod
+    def from_local(cls, model_path: str | Path, providers=None,
+                   config: ToneConfig | None = None,
+                   device: str | torch.device | None = None) -> "StreamingCTCModel":
+        """Load from a local artifact onto ``device`` (``cuda`` unless the
+        caller asks for the CPU).
+
+        Accepts the port's checkpoint directory (``config.json`` +
+        ``variables.safetensors``, ``checkpoint.save_checkpoint``), a torch
+        checkpoint file (.safetensors / .bin / .pt) in the reference's
+        naming, the reference's deployed ``model.onnx`` artifact
+        (tone/onnx_wrapper.py:60-77), whose weights are extracted from the
+        graph, or a ``.nemo`` archive (``interop.save_nemo_archive``; the
+        JAX package's ``from_local`` does not take one).  ``providers`` is
+        accepted for reference API compatibility and ignored; ``config``
+        overrides the stored or default configuration (e.g. to force a
+        compute dtype or chunk duration).
+        """
+        del providers
+        path = Path(model_path)
+        if path.is_dir():
+            from tone_tpu_torch.checkpoint import load_checkpoint
+
+            variables, stored = load_checkpoint(path, config)
+            return cls(variables, config or stored, device=device)
+        if path.suffix == ".nemo":
+            from tone_tpu_torch.interop import load_nemo_archive
+
+            variables, stored = load_nemo_archive(path)
+            return cls(variables, config or stored, device=device)
+        config = config or ToneConfig()
+        if path.suffix == ".onnx":
+            from tone_tpu_torch.onnx_import import load_onnx_checkpoint
+
+            return cls(load_onnx_checkpoint(path, config), config, device=device)
+        from tone_tpu_torch.checkpoint import load_torch_checkpoint
+
+        return cls(load_torch_checkpoint(path, config), config, device=device)
+
+    @classmethod
+    def from_hugging_face(cls) -> "StreamingCTCModel":
+        return cls.from_local(cls.download_from_hugging_face())
+
+    @classmethod
+    def download_from_hugging_face(cls) -> str:
+        """Not available: the download needs the network, which the port's
+        machines do not have; load the files with ``from_local``."""
+        raise NotImplementedError(
+            "StreamingCTCModel.download_from_hugging_face needs the network "
+            "(Hugging Face Hub t-tech/T-one); put model.safetensors or model.onnx "
+            "on disk and use from_local")
+
+    # -- native fast path --------------------------------------------------
 
     def init_state(self, batch_size: int) -> StreamingState:
         return init_streaming_state(self.config, batch_size, device=self.device)

@@ -190,10 +190,10 @@ class BeamSearchCTCDecoder:
 
     @classmethod
     def from_hugging_face(cls) -> "BeamSearchCTCDecoder":
-        """Not ported: the LM download waits for the interop slice."""
+        """Not available: the kenlm.bin download needs the network."""
         raise NotImplementedError(
-            "BeamSearchCTCDecoder.from_hugging_face (the kenlm.bin download) is not "
-            "ported to tone_tpu_torch yet (ROADMAP queue A14); use from_local")
+            "BeamSearchCTCDecoder.from_hugging_face needs the network (Hugging Face "
+            "Hub t-tech/T-one); put kenlm.bin on disk and use from_local")
 
     def forward(self, logprobs: "npt.NDArray[np.float32]") -> str:
         """Decode (L, vocab+1) logprobs to text via prefix beam search."""

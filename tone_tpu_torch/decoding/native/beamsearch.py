@@ -3,8 +3,9 @@
 
 The shared library is built at first use from the port's own copy of the
 source, ``src/tone_decode.cpp``, with the system ``g++`` into the package's
-build directory (``tone_tpu_torch/_kernels/``, git-ignored), under a name
-keyed by the hash of the source and the flags, so an edited source is
+build directory (``tone_tpu_torch/_kernels/`` unless redirected, git-ignored;
+``ops/_build.py GxxLibrary``), under a name keyed by the hash of the source
+and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  The entry points raise
 RuntimeError where no toolchain is available; ``BeamSearchCTCDecoder``
 then decodes with the Python search (``decoding/beam.py``).
@@ -13,106 +14,77 @@ then decodes with the Python search (``decoding/beam.py``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
+from tone_tpu_torch.ops import _build
+
 _SRC = Path(__file__).resolve().parent / "src" / "tone_decode.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "_kernels"
-_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_build_failed = False
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.tone_lm_load_arpa.restype = ctypes.c_void_p
+    lib.tone_lm_load_arpa.argtypes = [ctypes.c_char_p]
+    lib.tone_lm_load.restype = ctypes.c_void_p
+    lib.tone_lm_load.argtypes = [ctypes.c_char_p]
+    lib.tone_lm_free.argtypes = [ctypes.c_void_p]
+    lib.tone_lm_order.restype = ctypes.c_int
+    lib.tone_lm_order.argtypes = [ctypes.c_void_p]
+    lib.tone_lm_word_id.restype = ctypes.c_int
+    lib.tone_lm_word_id.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.tone_lm_score.restype = ctypes.c_float
+    lib.tone_lm_score.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int, ctypes.c_int32]
+    lib.tone_ctc_beam_search.restype = ctypes.c_int
+    lib.tone_ctc_beam_search.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        ctypes.c_double, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.tone_hotwords_create.restype = ctypes.c_void_p
+    lib.tone_hotwords_create.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_double]
+    lib.tone_hotwords_free.argtypes = [ctypes.c_void_p]
+    lib.tone_beam_create.restype = ctypes.c_void_p
+    lib.tone_beam_create.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        ctypes.c_double, ctypes.c_void_p,
+    ]
+    lib.tone_beam_advance.restype = ctypes.c_int
+    lib.tone_beam_advance.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_int,
+    ]
+    lib.tone_beam_result.restype = ctypes.c_int
+    lib.tone_beam_result.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.tone_beam_nbest.restype = ctypes.c_int
+    lib.tone_beam_nbest.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+    lib.tone_beam_reset.argtypes = [ctypes.c_void_p]
+    lib.tone_beam_free.argtypes = [ctypes.c_void_p]
+
+
+_LIBRARY = _build.GxxLibrary(_SRC, _declare)
 
 
 def library_path() -> Path:
-    """Where the library builds to: keyed by the source and the flags."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
-    return _BUILD_DIR / f"libtone_decode-{digest.hexdigest()[:16]}.so"
-
-
-_LIB = library_path()
+    """Where the library builds to: keyed by the source and the flags, in
+    the build directory (``ops/_build.py BUILD_DIR``)."""
+    return _LIBRARY.path()
 
 
 def build_native(force: bool = False) -> bool:
     """Compile the shared library if needed.  Returns availability."""
-    global _build_failed
-    with _lock:
-        if _LIB.exists() and not force:
-            return True
-        if _build_failed and not force:
-            return False
-        tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        try:
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
-                           check=True, capture_output=True, timeout=300)
-            os.replace(tmp, _LIB)   # concurrent builds each publish a whole file
-            return True
-        except (OSError, subprocess.SubprocessError):
-            tmp.unlink(missing_ok=True)
-            _build_failed = True
-            return False
+    return _LIBRARY.build(force)
 
 
 def _load() -> ctypes.CDLL | None:
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not build_native():
-        return None
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_LIB))
-            lib.tone_lm_load_arpa.restype = ctypes.c_void_p
-            lib.tone_lm_load_arpa.argtypes = [ctypes.c_char_p]
-            lib.tone_lm_load.restype = ctypes.c_void_p
-            lib.tone_lm_load.argtypes = [ctypes.c_char_p]
-            lib.tone_lm_free.argtypes = [ctypes.c_void_p]
-            lib.tone_lm_order.restype = ctypes.c_int
-            lib.tone_lm_order.argtypes = [ctypes.c_void_p]
-            lib.tone_lm_word_id.restype = ctypes.c_int
-            lib.tone_lm_word_id.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
-            lib.tone_lm_score.restype = ctypes.c_float
-            lib.tone_lm_score.argtypes = [
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
-                ctypes.c_int, ctypes.c_int32]
-            lib.tone_ctc_beam_search.restype = ctypes.c_int
-            lib.tone_ctc_beam_search.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_double, ctypes.c_double, ctypes.c_int,
-                ctypes.c_double, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
-            ]
-            lib.tone_hotwords_create.restype = ctypes.c_void_p
-            lib.tone_hotwords_create.argtypes = [
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_double]
-            lib.tone_hotwords_free.argtypes = [ctypes.c_void_p]
-            lib.tone_beam_create.restype = ctypes.c_void_p
-            lib.tone_beam_create.argtypes = [
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_double, ctypes.c_double, ctypes.c_int,
-                ctypes.c_double, ctypes.c_void_p,
-            ]
-            lib.tone_beam_advance.restype = ctypes.c_int
-            lib.tone_beam_advance.argtypes = [
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
-                ctypes.c_int, ctypes.c_int,
-            ]
-            lib.tone_beam_result.restype = ctypes.c_int
-            lib.tone_beam_result.argtypes = [
-                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
-            lib.tone_beam_nbest.restype = ctypes.c_int
-            lib.tone_beam_nbest.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
-            lib.tone_beam_reset.argtypes = [ctypes.c_void_p]
-            lib.tone_beam_free.argtypes = [ctypes.c_void_p]
-            _lib = lib
-    return _lib
+    return _LIBRARY.load()
 
 
 def native_available() -> bool:

@@ -1,4 +1,5 @@
-"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+"""Builds the port's CUDA kernels (and its C++ host libraries) at first use
+and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
@@ -6,6 +7,12 @@ alone (no PyTorch headers, so a build takes seconds) into
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.  The compiler's ``-Xptxas -v`` report (registers, shared
 memory, spills) is kept beside the library as ``.log``.
+
+``GxxLibrary`` builds the port's C++ host sources (the native beam decoder
+and LM estimator under ``decoding/native/src/``) with ``g++`` into the same
+directory, keyed the same way.  ``BUILD_DIR`` may be pointed elsewhere
+before the first build (``export.enable_compilation_cache``), so that a
+container builds each library once.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -80,3 +89,56 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def gxx_library_path(source: Path) -> Path:
+    """Where the C++ ``source`` builds to: keyed by the source and the flags."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+class GxxLibrary:
+    """A C++ source built with ``g++`` at first use and loaded with ctypes
+    once; ``load()`` gives None where no toolchain builds it (the callers
+    then take their Python path).  ``declare(lib)`` sets the functions'
+    argtypes and restypes."""
+
+    def __init__(self, source: Path, declare) -> None:
+        self.source = source
+        self._declare = declare
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        self._failed = False
+
+    def path(self) -> Path:
+        return gxx_library_path(self.source)
+
+    def build(self, force: bool = False) -> bool:
+        """Compile the library if needed.  Returns availability."""
+        with self._lock:
+            out = self.path()
+            if out.exists() and not force:
+                return True
+            if self._failed and not force:
+                return False
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            try:
+                subprocess.run(["g++", *GXX_FLAGS, str(self.source), "-o", str(tmp)],
+                               check=True, capture_output=True, timeout=300)
+                os.replace(tmp, out)  # concurrent builds each publish a whole file
+                return True
+            except (OSError, subprocess.SubprocessError):
+                self._failed = True
+                return False
+            finally:
+                tmp.unlink(missing_ok=True)
+
+    def load(self) -> ctypes.CDLL | None:
+        if self._lib is None and self.build():
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(str(self.path()))
+                    self._declare(lib)
+                    self._lib = lib
+        return self._lib

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from tone_tpu_torch.config import BLANK_ID, LABELS
+from tone_tpu_torch.device import resolve_device
 
 SPACE_ID = LABELS.index(" ")
 NEG_INF = float("-inf")
@@ -365,10 +366,11 @@ def beam_nbest(state: BeamState, n: int = 1) -> list[list[tuple[str, float]]]:
 
 def beam_search_decode(logprobs, lengths=None, *, beam_width: int = 16,
                        token_min_logp: float = -5.0, max_len: int = 2048,
-                       device: str | torch.device = "cpu") -> list[str]:
-    """Decode a batch of (B, T, V) logprobs to texts on ``device``."""
+                       device: str | torch.device | None = None) -> list[str]:
+    """Decode a batch of (B, T, V) logprobs to texts on ``device`` (``cuda``
+    unless the caller asks for the CPU)."""
     logprobs = np.asarray(logprobs, np.float32)
-    state = init_beam_state(logprobs.shape[0], beam_width, max_len, device)
+    state = init_beam_state(logprobs.shape[0], beam_width, max_len, resolve_device(device))
     state = beam_advance(state, logprobs, lengths, token_min_logp=token_min_logp)
     return [hyps[0][0] if hyps else "" for hyps in beam_nbest(state, 1)]
 

@@ -16,7 +16,9 @@ CPU tensor it runs ``glu_ff2_plain``, the same numerics in plain PyTorch:
 the tile sizes in ``csrc/glu_ff_plan.cuh``, which the kernel compiles, and
 the card's SM count.
 
-``glu_ff2.launches`` counts kernel launches (only launches, not plain runs).
+``glu_ff2.launches`` counts kernel launches (only launches, not plain runs),
+eager ones and those of the registered op ``torch.ops.tone_tpu_torch.glu_ff2``
+that a program exported by ``export.py`` calls.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 
 from tone_tpu_torch.ops import _build
 
-__all__ = ["GluPlan", "glu_ff2", "glu_ff2_plain", "kernel_constants", "plan_glu_ff"]
+__all__ = ["GluPlan", "glu_ff2", "glu_ff2_op", "glu_ff2_plain", "kernel_constants",
+           "plan_glu_ff"]
 
 
 def glu_ff2_plain(av: torch.Tensor, p2, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -143,16 +146,27 @@ def _plan(m: int, f: int, d: int, sms: int) -> GluPlan:
 def glu_ff2(av: torch.Tensor, p2, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """``lin2(silu(av[..., :F]) * av[..., F:])``; ``av`` (..., 2F),
     ``p2`` = ``{"w": (F, D) bf16, "b": (D,) float32}``."""
-    *lead, two_f = av.shape
-    f, d = p2["w"].shape
+    two_f = av.shape[-1]
+    f = p2["w"].shape[0]
     if two_f != 2 * f:
         raise ValueError(f"av has {two_f} features, W2 expects 2 x {f}")
+    if compute_dtype == torch.bfloat16 and torch.compiler.is_compiling():
+        # Traced (torch.export): a ctypes launch is invisible to the tracer,
+        # so the program records the registered op, whose CUDA kernel is the
+        # launch below (and whose CPU kernel is the plain version).
+        return torch.ops.tone_tpu_torch.glu_ff2(av, p2["w"], p2["b"])
     if av.device.type == "cpu":
         return glu_ff2_plain(av, p2, compute_dtype)
     if av.device.type != "cuda":
         raise ValueError(f"glu_ff2 runs on CUDA or CPU tensors, not {av.device}")
+    return _launch(av, p2["w"], p2["b"], compute_dtype)
 
-    w, b = p2["w"], p2["b"]
+
+def _launch(av: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (counted)."""
+    *lead, two_f = av.shape
+    f, d = w.shape
     if compute_dtype != torch.bfloat16 or av.dtype != torch.bfloat16 \
             or w.dtype != torch.bfloat16 or b.dtype != torch.float32:
         raise TypeError("the glu_ff kernel takes bf16 av and W2, a float32 bias "
@@ -180,3 +194,26 @@ def glu_ff2(av: torch.Tensor, p2, compute_dtype=torch.bfloat16) -> torch.Tensor:
 
 
 glu_ff2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel as a registered op, ``torch.ops.tone_tpu_torch.glu_ff2``: what
+# a program traced by torch.export (export.py) calls.  On CUDA tensors it is
+# the kernel's launch, counted like an eager one; on CPU tensors the plain
+# version.  Eager code calls ``glu_ff2`` directly (no dispatcher round trip).
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("tone_tpu_torch::glu_ff2", mutates_args=(), device_types="cuda")
+def glu_ff2_op(av: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _launch(av, w, b)
+
+
+@glu_ff2_op.register_kernel("cpu")
+def _glu_ff2_op_cpu(av: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return glu_ff2_plain(av, {"w": w, "b": b})
+
+
+@glu_ff2_op.register_fake
+def _glu_ff2_op_fake(av: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return av.new_empty((*av.shape[:-1], w.shape[1]), dtype=torch.bfloat16)

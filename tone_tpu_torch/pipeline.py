@@ -11,13 +11,14 @@ kept on the model's device.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import TYPE_CHECKING
 
 import numpy as np
 
 from tone_tpu_torch.acoustic import StreamingCTCModel
 from tone_tpu_torch.config import ToneConfig
-from tone_tpu_torch.decoder import GreedyCTCDecoder
+from tone_tpu_torch.decoder import BeamSearchCTCDecoder, DecoderType, GreedyCTCDecoder
 from tone_tpu_torch.splitter import StreamingLogprobSplitter
 
 if TYPE_CHECKING:
@@ -96,6 +97,66 @@ class StreamingCTCPipeline:
         # Instance-level chunk/padding follow the model config.
         self.CHUNK_SIZE = model.config.audio_chunk_samples
         self.PADDING = model.config.padding
+
+    # -- factories ---------------------------------------------------------
+
+    @classmethod
+    def from_hugging_face(cls, *, decoder_type: DecoderType = DecoderType.BEAM_SEARCH):
+        """Not available: the artifacts' download needs the network."""
+        model = StreamingCTCModel.from_hugging_face()
+        return cls._assemble(model, decoder_type, BeamSearchCTCDecoder.from_hugging_face)
+
+    @classmethod
+    def from_local(cls, dir_path: str | Path, *,
+                   decoder_type: DecoderType = DecoderType.BEAM_SEARCH,
+                   providers=None, config: ToneConfig | None = None,
+                   device=None) -> "StreamingCTCPipeline":
+        """Create a pipeline from a local artifact folder, the model on
+        ``device`` (``cuda`` unless the caller asks for the CPU).
+
+        Expects the acoustic checkpoint under ``<dir>/model`` (the port's
+        checkpoint directory), ``<dir>/model.safetensors`` / ``model.bin`` /
+        ``model.pt`` (torch format) or ``<dir>/model.onnx`` (the reference's
+        deployed artifact), and the LM under ``<dir>/lm.arpa[.gz]`` or
+        ``<dir>/kenlm.bin`` (the beam decoder searches without an LM where
+        there is none).
+        """
+        del providers
+        dir_path = Path(dir_path)
+        model_path = None
+        for candidate in ("model", "model.safetensors", "model.bin", "model.pt",
+                          "model.onnx"):
+            if (dir_path / candidate).exists():
+                model_path = dir_path / candidate
+                break
+        if model_path is None:
+            raise FileNotFoundError(f"no acoustic model artifact in {dir_path}")
+        model = StreamingCTCModel.from_local(model_path, config=config, device=device)
+
+        def make_beam():
+            for candidate in ("lm.arpa.gz", "lm.arpa", "kenlm.bin"):
+                if (dir_path / candidate).exists():
+                    return BeamSearchCTCDecoder.from_local(dir_path / candidate)
+            return BeamSearchCTCDecoder()  # LM-free beam search
+
+        return cls._assemble(model, decoder_type, make_beam)
+
+    @classmethod
+    def _assemble(cls, model, decoder_type, make_beam):
+        splitter = StreamingLogprobSplitter()
+        if decoder_type == DecoderType.GREEDY:
+            return cls(model, splitter, GreedyCTCDecoder())
+        if decoder_type == DecoderType.BEAM_SEARCH:
+            return cls(model, splitter, make_beam())
+        raise ValueError("Unknown decoder type")
+
+    @staticmethod
+    def download_from_hugging_face(dir_path: str | Path, only_acoustic: bool = False) -> None:
+        """Not available: the download needs the network."""
+        del dir_path, only_acoustic
+        StreamingCTCModel.download_from_hugging_face()
+
+    # -- inference ---------------------------------------------------------
 
     def forward(self, audio_chunk: "npt.NDArray[np.int32]", state=None, *,
                 is_last: bool = False) -> tuple[list[TextPhrase], tuple]:

@@ -14,9 +14,11 @@ Speaks the reference demo protocol:
 Every connection maps to a slot in the shared device arena and all live
 connections advance together in one batched step per tick.  A JSON text
 frame sets per-request hotwords and n-best; an engine that cannot serve
-them (n-best on a greedy engine) answers with the JAX server's error event.  The bundled
-browser page of the JAX server is not served.  ``websockets`` is imported inside the
-functions that need it, so the engine and this module load without it.
+them (n-best on a greedy engine) answers with the JAX server's error event.  A plain
+HTTP GET of ``/`` (or ``/index.html``) returns the bundled browser client
+(``static/index.html``, a copy of the JAX package's page).  ``websockets`` is
+imported inside the functions that need it, so the engine and this module
+load without it.
 
 Run:  python -m tone_tpu_torch serve [--port 8080]
 """
@@ -26,6 +28,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+from pathlib import Path
 
 import numpy as np
 
@@ -399,6 +402,28 @@ class TranscriptionServer:
                 queue.task_done()
 
 
+def _static_page_handler():
+    """Serve the bundled browser client for plain-HTTP GETs (the websockets
+    library hands non-upgrade requests to process_request)."""
+    from websockets.datastructures import Headers
+    from websockets.http11 import Response
+
+    page = (Path(__file__).parent / "static" / "index.html").read_bytes()
+
+    def process_request(connection, request):
+        if "Upgrade" in request.headers.get("Connection", "") or \
+                request.headers.get("Upgrade", "").lower() == "websocket":
+            return None  # continue with the websocket handshake
+        if request.path in ("/", "/index.html"):
+            return Response(200, "OK", Headers([
+                ("Content-Type", "text/html; charset=utf-8"),
+                ("Content-Length", str(len(page))),
+            ]), page)
+        return Response(404, "Not Found", Headers([("Content-Length", "0")]), b"")
+
+    return process_request
+
+
 async def serve(engine: MultiStreamEngine, host: str = "0.0.0.0", port: int = 8080,
                 metrics_port: int | None = 8002, drain_grace: float = 10.0,
                 on_started=None):
@@ -469,9 +494,10 @@ async def serve(engine: MultiStreamEngine, host: str = "0.0.0.0", port: int = 80
         except (NotImplementedError, RuntimeError, ValueError):
             pass  # non-main thread or platform without signal support
 
-    async with websockets.serve(server.handle, host, port, max_size=2**22) as ws:
+    async with websockets.serve(server.handle, host, port, max_size=2**22,
+                                process_request=_static_page_handler()) as ws:
         bound_port = ws.sockets[0].getsockname()[1]
-        logger.info("listening on ws://%s:%d/api/ws", host, bound_port)
+        logger.info("listening on ws://%s:%d/api/ws (browser client at /)", host, bound_port)
         if on_started is not None:
             on_started(bound_port)
         try:
