@@ -120,7 +120,22 @@ prints one JSON line per phase:
             BatchNorm statistics on the card against the CPU at dropout 0 on
             2 utterances of 3 s; the trained weights streamed through
             ``StreamingCTCModel.forward_native`` (2 streams x 5 chunks, 32
-            GLU kernel launches per step) within 0.1 of the offline forward.
+            GLU kernel launches per step) within 0.1 of the offline forward;
+15. parallel  the device mesh on this one card, the same model: bulk
+            (``OfflineTranscriber(mesh=make_mesh(devices=[cuda:0, cuda:0]))``,
+            one batch of the bulk cell's first 8 utterances, 4 rows per
+            replica, both forwards) with the one-device transcriber's texts
+            and times, B1 launched on both replicas (2 x 32 per chunk column
+            in the scan), wall seconds of the two in turns; serving (the serve
+            cell's streams through 16 slots, 8 + 8 over the two replicas)
+            with the unsplit engine's finals, 2 x 32 launches per tick and the
+            tick median; training (the train cell's first 4 utterances, 3
+            steps) as two gloo ranks on the card at (data, model) = (2, 1)
+            and (1, 2), each loss within 1e-2 of one process's, ms and
+            all-reduced bytes per step; one NCCL rank (a 1 x 1 mesh), its step
+            saved: loss within 1e-5 of the step without a mesh, Adam's first
+            moment within 1e-2 of it.  Two replicas or ranks on one card
+            measure correctness and overhead, not scaling.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line needs the kernels, serve, fused_kernels, fused_step and bulk
@@ -838,12 +853,13 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
             "cases": rows}
 
 
-def _serve_cell(engine, setup) -> dict:
+def _serve_cell(engine, setup, replicas: int = 1) -> dict:
     """Drive the serve cell through ``engine`` as the server's tick loop
     does: three streams of 3 s of seeded PCM (with the server's padding),
     ``setup(engine, sids)`` before the audio; the first ticks run under the
-    profiler; every tick must launch the GLU kernel 32 times and every
-    stream must yield ordered final phrases."""
+    profiler; every tick must launch the GLU kernel 32 times on each of the
+    arena's ``replicas`` and every stream must yield ordered final
+    phrases."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -890,8 +906,8 @@ def _serve_cell(engine, setup) -> dict:
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_PROFILED_TICKS
     ticks = engine.stats.ticks - ticks0
     launches = glu_ff2.launches
-    if launches != 32 * ticks:
-        raise AssertionError(f"{launches} GLU launches over {ticks} ticks")
+    if launches != 2 * cfg.encoder.n_layers * replicas * ticks:  # 32 a step and replica
+        raise AssertionError(f"{launches} GLU launches over {ticks} ticks on {replicas} replicas")
     phrases = {sid: [f.result(timeout=600) for f in futs] for sid, futs in futures.items()}
     for sid, ps in phrases.items():
         if not ps:
@@ -900,7 +916,7 @@ def _serve_cell(engine, setup) -> dict:
         if times != sorted(times) or any(t < 0 for t in times):
             raise AssertionError(f"stream {sid}: phrase times out of order: {times}")
     return {"sids": sids, "phrases": phrases, "out": {
-        "slots": SERVE_SLOTS, "streams": len(sids), "ticks": ticks, "glu_launches": launches,
+        "slots": engine.arena.n_slots, "streams": len(sids), "ticks": ticks, "glu_launches": launches,
         "warmup_s": warmup_s, "tick_ms_median": float(np.median(tick_ms[SERVE_PROFILED_TICKS:])),
         "tick_ms_max": float(np.max(tick_ms)), "profiled_ticks": SERVE_PROFILED_TICKS,
         "device_ms_per_tick": device_ms, "interim_events": interims,
@@ -1835,8 +1851,220 @@ def phase_artifacts() -> dict:
                          "streams_realtime": stats.rtfx, "steps": list(ARTIFACT_STATS_STEPS)}
     return out
 
+# The parallel phase: the device mesh on the one card.  Two replicas (bulk,
+# serving) or two ranks (training) on one H100 show that the mesh's paths run
+# at full width and give one device's results; they measure overhead, not
+# scaling: the replicas share the card, and gloo reduces through the host.
+PARALLEL_DEVICES = ("cuda:0", "cuda:0")
+PARALLEL_BULK_ROWS = 8       # the bulk cell's first 8 utterances (4-28 s), one batch
+PARALLEL_TRAIN_ROWS = 4      # the train cell's first 4 utterances (4-5.6 s), one batch
+PARALLEL_TRAIN_STEPS = 3     # the third loss follows the first update with lr > 0
+PARALLEL_TRAIN_TOL = 1e-2    # relative loss of a mesh against one process (PERF.md §2)
+PARALLEL_NCCL_LOSS_TOL = TRAIN_LOSS_TOL  # the 1x1 NCCL step's loss against no mesh
+PARALLEL_RANK_TIMEOUT = 300  # seconds for every rank of one run
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_parallel() -> dict:
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tone_tpu_torch.bridge import tree_leaves
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.offline import OfflineTranscriber
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+    from tone_tpu_torch.parallel.mesh import arena_shardings, make_mesh
+    from tone_tpu_torch.parallel.ranks import train_on_mesh
+    from tone_tpu_torch.runtime.arena import StreamArena
+    from tone_tpu_torch.runtime.engine import MultiStreamEngine
+    from tone_tpu_torch.training import DataCollatorCTCWithPadding, Trainer, TrainerConfig
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    mesh = make_mesh(devices=list(PARALLEL_DEVICES))
+    replicas = len(PARALLEL_DEVICES)
+
+    # Bulk: one batch of 8 utterances, 4 rows on each replica.  Held to the
+    # one-device transcriber at each replica's share (4 rows padded alike):
+    # the same shapes on the same card, so equal to the bit; and to the
+    # one-device transcriber at the whole batch within the step's tolerance
+    # (a batch of 8 changes cuBLAS's summation order, which flips near-ties
+    # of the random weights' argmax).  Timed in turns: one, split, split, one.
+    dev = PARALLEL_DEVICES[0]
+    audios = bulk_corpus()[:PARALLEL_BULK_ROWS]
+    chunk, pad = cfg.audio_chunk_samples, cfg.padding
+    n_chunks = -(-max(-(-(len(a) + 2 * pad) // chunk) for a in audios) // 8) * 8
+    per = PARALLEL_BULK_ROWS // replicas
+    bulk = []
+    for name, off in (("scan", False), ("offline_forward", True)):
+        split = OfflineTranscriber(variables, cfg, batch_size=PARALLEL_BULK_ROWS, mesh=mesh,
+                                   use_offline_forward=off)
+        share = OfflineTranscriber(variables, cfg, batch_size=per, device=dev,
+                                   bucket_samples=n_chunks * chunk, use_offline_forward=off)
+        one = OfflineTranscriber(variables, cfg, batch_size=PARALLEL_BULK_ROWS, device=dev,
+                                 use_offline_forward=off)
+        lps = {label: tr.logprobs(audios)
+               for label, tr in (("split", split), ("share", share), ("one", one))}
+        share_equal = all(np.array_equal(a, b) for a, b in zip(lps["split"], lps["share"]))
+        lp_err = max(float(np.abs(a - b).max()) for a, b in zip(lps["split"], lps["one"]))
+        flips = sum(int((a.argmax(-1) != b.argmax(-1)).sum())
+                    for a, b in zip(lps["split"], lps["one"]))
+        walls, texts, launches = {"one_device": [], "two_replicas": []}, {}, None
+        for label, tr in (("one_device", one), ("two_replicas", split),
+                          ("two_replicas", split), ("one_device", one)):
+            torch.cuda.synchronize()
+            glu_ff2.launches = 0
+            t0 = time.perf_counter()
+            phrases = tr.transcribe(audios)
+            walls[label].append(time.perf_counter() - t0)
+            if label == "two_replicas":
+                launches = glu_ff2.launches
+            texts.setdefault(label, [_phrases(p) for p in phrases])
+        texts["share"] = [_phrases(p) for p in share.transcribe(audios)]
+        want = replicas * 2 * cfg.encoder.n_layers * (1 if off else n_chunks)  # 32 a step
+        if launches != want:
+            raise AssertionError(f"parallel bulk {name}: {launches} GLU launches, expected {want}")
+        if not share_equal or texts["two_replicas"] != texts["share"]:
+            raise AssertionError(f"parallel bulk {name}: the replicas differ from one device "
+                                 f"at their share: {texts}")
+        if not lp_err <= STEP_TOL:
+            raise AssertionError(f"parallel bulk {name}: logprobs {lp_err} > {STEP_TOL} "
+                                 "against one device at the whole batch")
+        bulk.append({
+            "forward": name, "rows": len(audios), "rows_per_replica": per,
+            "audio_s": sum(len(a) for a in audios) / 8000, "chunks_per_row": n_chunks,
+            "glu_launches_per_batch": launches, "wall_s": walls,
+            "at_share": {"logprobs_equal": share_equal, "texts_equal": True},
+            "at_whole_batch": {
+                "logprobs_max_abs_err": lp_err, "tol": STEP_TOL, "argmax_flips": flips,
+                "frames": sum(len(a) for a in lps["one"]),
+                "times_equal": [[p[1:] for p in u] for u in texts["two_replicas"]]
+                == [[p[1:] for p in u] for u in texts["one_device"]],
+                "texts_equal": sum(a == b for a, b in zip(texts["two_replicas"],
+                                                          texts["one_device"]))},
+            "phrases": sum(len(u) for u in texts["one_device"])})
+
+    # Serving: the serve cell's streams through 16 slots, 8 on each replica.
+    # Held to an unsplit engine of one replica's 8 slots (the streams take
+    # the last slots: the same rows, shapes and card, so equal finals), and
+    # to the unsplit 16-slot arena within the step's tolerance; the
+    # unsplit 16-slot engine's finals and ticks beside them.
+    serve, cells = {}, {}
+    for label, kw, n_slots, n in (
+            ("one_device", {"device": dev}, SERVE_SLOTS, 1),
+            ("one_device_share", {"device": dev}, SERVE_SLOTS // replicas, 1),
+            ("two_replicas", {"sharding": arena_shardings(mesh, cfg, SERVE_SLOTS)},
+             SERVE_SLOTS, replicas)):
+        engine = MultiStreamEngine(variables, cfg, n_slots=n_slots, **kw)
+        try:
+            cells[label] = _serve_cell(engine, lambda e, sids: None, replicas=n)
+        finally:
+            engine.shutdown()
+    finals = {label: [[(p.text, p.start_time, p.end_time) for p in cell["phrases"][sid]]
+                      for sid in cell["sids"]] for label, cell in cells.items()}
+    if finals["two_replicas"] != finals["one_device_share"]:
+        raise AssertionError(f"parallel serve: finals differ from one device at the "
+                             f"replica's share: {finals}")
+    arenas = [StreamArena(variables, cfg, SERVE_SLOTS, **kw)
+              for kw in ({"device": dev}, {"sharding": arena_shardings(mesh, cfg, SERVE_SLOTS)})]
+    rng = np.random.default_rng(2)
+    tick_err = 0.0
+    for k in range(5):
+        chunks = rng.integers(-20000, 20000, (SERVE_SLOTS, chunk)).astype(np.int16)
+        flags = np.ones(SERVE_SLOTS, bool), np.full(SERVE_SLOTS, k == 0)
+        a, b = (arena.tick(chunks, *flags) for arena in arenas)
+        tick_err = max(tick_err, float(np.abs(a - b).max()))
+    del arenas
+    if not tick_err <= STEP_TOL:
+        raise AssertionError(f"parallel serve: split arena vs unsplit {tick_err} > {STEP_TOL}")
+    serve = {label: {k: cell["out"][k] for k in ("slots", "ticks", "glu_launches",
+                                                 "tick_ms_median", "tick_ms_max",
+                                                 "device_ms_per_tick", "warmup_s")}
+             for label, cell in cells.items()}
+    serve["two_replicas"]["slots_per_replica"] = SERVE_SLOTS // replicas
+    serve["finals_equal_at_share"] = True
+    serve["finals_equal_to_16_slots"] = finals["two_replicas"] == finals["one_device"]
+    serve["arena_16_slots_max_abs_err"] = tick_err
+
+    # Training: one process on the card, then two gloo ranks on it at
+    # (data, model) = (2, 1) and (1, 2), then one NCCL rank (1 x 1).
+    feats = train_features(range(100, 100 + PARALLEL_TRAIN_ROWS),
+                           TRAIN_SECONDS[:PARALLEL_TRAIN_ROWS])
+    batch = DataCollatorCTCWithPadding()(feats)
+    tcfg = TrainerConfig(learning_rate=3e-4, total_steps=20)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    state = trainer.create_state(variables)
+    one_losses, one_ms = [], []
+    for step in range(PARALLEL_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        one_losses.append(float(loss))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            mu_one = torch.cat([t.reshape(-1).cpu() for t in tree_leaves(state.opt_state.mu)])
+    del trainer, state
+    torch.cuda.empty_cache()
+    spec = {"config": cfg.to_dict(), "trainer": dataclasses.asdict(tcfg),
+            "variables": variables, "batch": {k: torch.as_tensor(v) for k, v in batch.items()},
+            "steps": PARALLEL_TRAIN_STEPS}
+    train = {"rows": len(feats), "batch_shape": list(batch["input_values"].shape),
+             "steps": PARALLEL_TRAIN_STEPS, "one_process": {"losses": one_losses,
+                                                            "ms_per_step": one_ms}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        for n_data, n_model in ((2, 1), (1, 2)):
+            t0 = time.perf_counter()
+            ranks = train_on_mesh({**spec, "n_data": n_data, "n_model": n_model},
+                                  PARALLEL_DEVICES, Path(tmp) / f"mesh_{n_data}x{n_model}",
+                                  timeout=PARALLEL_RANK_TIMEOUT)
+            wall = time.perf_counter() - t0
+            errs = [_rel(a, b) for a, b in zip(ranks[0]["losses"], one_losses)]
+            if (any(r["losses"] != ranks[0]["losses"] for r in ranks)
+                    or any(r["backend"] != "gloo" for r in ranks)
+                    or not max(errs) <= PARALLEL_TRAIN_TOL):
+                raise AssertionError(f"parallel train {n_data}x{n_model}: {ranks} against "
+                                     f"one process {one_losses}")
+            train[f"{n_data}x{n_model}"] = {
+                "backend": "gloo", "losses": ranks[0]["losses"], "loss_rel_err": errs,
+                "ms_per_step": ranks[0]["ms_per_step"],
+                "bytes_reduced_per_step": ranks[0]["bytes_reduced_per_step"],
+                "run_wall_s": wall}
+        # One NCCL rank: one step, saved, against the first step without a mesh.
+        t0 = time.perf_counter()
+        (rank,) = train_on_mesh({**spec, "steps": 1, "n_data": 1, "n_model": 1, "save": True},
+                                PARALLEL_DEVICES[:1], Path(tmp) / "nccl",
+                                timeout=PARALLEL_RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        saved = torch.load(Path(tmp) / "nccl" / "checkpoint" / "train_state.pt",
+                           map_location="cpu", weights_only=True)
+        mu = torch.cat([t.reshape(-1) for t in tree_leaves(saved["adam"]["mu"])])
+        mu_rel = ((mu - mu_one).norm() / mu_one.norm()).item()
+        mu_cos = torch.nn.functional.cosine_similarity(mu.double(), mu_one.double(),
+                                                       dim=0).item()
+        nccl = {"backend": rank["backend"], "loss": rank["losses"][0],
+                "loss_rel_err": _rel(rank["losses"][0], one_losses[0]),
+                "adam_mu_rel_err": mu_rel, "adam_mu_cosine": mu_cos,
+                "resumed_loss": rank["resumed_loss"], "live_loss": rank["live_loss"],
+                "ms_per_step": rank["ms_per_step"], "run_wall_s": wall}
+        if not (nccl["backend"] == "nccl" and nccl["loss_rel_err"] <= PARALLEL_NCCL_LOSS_TOL
+                and mu_rel <= TRAIN_REMAT_GRAD_TOL["bfloat16"] and mu_cos >= TRAIN_CPU_COSINE
+                and _rel(rank["resumed_loss"], rank["live_loss"]) <= PARALLEL_NCCL_LOSS_TOL):
+            raise AssertionError(f"parallel train 1x1 NCCL: {nccl}")
+    return {"phase": "parallel", "nvidia_smi": nvidia_smi(), "config": "ToneConfig() bf16",
+            "parameters": sum(t.numel() for t in tree_leaves(variables["params"])),
+            "devices": list(PARALLEL_DEVICES), "bulk": bulk, "serve": serve,
+            "train": {**train, "tol": PARALLEL_TRAIN_TOL}, "nccl_1x1": nccl}
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
-          "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train")
+          "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -1865,7 +2093,13 @@ def kernel_summary(out: dict) -> dict:
         "bulk_m": [{"m": c["m"], **{k: c[k] for k in keys}}
                    for c in kernels["cases"] if c["m"] in BULK_MS],
         **({"exported_launches_per_step": out["artifacts"]["export"]["child"]["glu_launches"]}
-           if "artifacts" in out else {})}, {
+           if "artifacts" in out else {}),
+        **({"parallel_launches": {
+            "bulk_per_batch_two_replicas": {r["forward"]: r["glu_launches_per_batch"]
+                                            for r in out["parallel"]["bulk"]},
+            "serve_two_replicas": out["parallel"]["serve"]["two_replicas"]["glu_launches"],
+            "serve_two_replicas_ticks": out["parallel"]["serve"]["two_replicas"]["ticks"]}}
+           if "parallel" in out else {})}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",

@@ -118,9 +118,15 @@ def test_device_decoder_batches_the_phrases():
 
 
 def test_mesh_and_default_device_raise():
+    """A mesh must be a ``parallel.mesh.Mesh``, and comes instead of a
+    device; without either the transcriber wants the card."""
+    from tone_tpu_torch.parallel.mesh import make_mesh
+
     _, tc, _, tv = _tiny()
-    with pytest.raises(NotImplementedError, match="A14"):
-        OfflineTranscriber(tv, tc, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        OfflineTranscriber(tv, tc, mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        OfflineTranscriber(tv, tc, mesh=make_mesh(devices=["cpu"]), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             OfflineTranscriber(tv, tc)

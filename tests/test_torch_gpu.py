@@ -822,3 +822,51 @@ def test_exported_program_on_card_equals_eager(cuda, tmp_path):
         assert torch.equal(lx, le)
     assert torch.equal(sx.encoder.conv, se.encoder.conv)
     assert torch.equal(sx.encoder.mhsa, se.encoder.mhsa)
+
+
+def _engine_finals(engine, seed=7):
+    """Three clips of three chunks through ``engine``: each stream's finals."""
+    rng = np.random.default_rng(seed)
+    clips = [rng.integers(-20000, 20000, 2400 * 3).astype(np.int32) for _ in range(3)]
+    sids = [engine.open_stream() for _ in clips]
+    for sid, clip in zip(sids, clips):
+        for i in range(3):
+            engine.feed(sid, clip[i * 2400:(i + 1) * 2400])
+        engine.close_stream(sid)
+    finals = {sid: [] for sid in sids}
+    for _ in range(5):
+        for sid, futures in engine.tick().items():
+            finals[sid].extend((p.text, p.start_time, p.end_time)
+                               for p in (f.result(timeout=60) for f in futures))
+    engine.shutdown()
+    return [finals[sid] for sid in sids]
+
+
+def test_tiny_data_parallel_on_two_replicas_of_the_card_matches_one_device(cuda):
+    """Bulk (both forwards) and serving split over ``[cuda:0, cuda:0]``: the
+    texts, times and finals of one device, with B1 launched on both
+    replicas."""
+    from tone_tpu_torch.parallel.mesh import arena_shardings, make_mesh
+    from tone_tpu_torch.runtime.engine import MultiStreamEngine
+
+    cfg, variables = _tiny_bf16()
+    mesh = make_mesh(devices=[cuda, cuda])
+    rng = np.random.default_rng(3)
+    audios = [rng.integers(-20000, 20000, n).astype(np.int32) for n in (5000, 7200, 1200)]
+    for offline_forward in (False, True):
+        split, one = (OfflineTranscriber(variables, cfg, batch_size=4, mesh=m, device=d,
+                                         use_offline_forward=offline_forward)
+                      for m, d in ((mesh, None), (None, cuda)))
+        before = glu_ff2.launches
+        got = [[(p.text, p.start_time, p.end_time) for p in u] for u in split.transcribe(audios)]
+        torch.cuda.synchronize()
+        chunk = cfg.audio_chunk_samples
+        columns = -(-max(-(-(len(a) + 2 * cfg.padding) // chunk) for a in audios) // 8) * 8
+        per_replica = 2 * cfg.encoder.n_layers * (1 if offline_forward else columns)
+        assert glu_ff2.launches - before == 2 * per_replica
+        assert got == [[(p.text, p.start_time, p.end_time) for p in u]
+                       for u in one.transcribe(audios)]
+    sharded = MultiStreamEngine(variables, cfg, n_slots=4,
+                                sharding=arena_shardings(mesh, cfg, 4))
+    assert _engine_finals(sharded) == _engine_finals(
+        MultiStreamEngine(variables, cfg, n_slots=4, device=cuda))

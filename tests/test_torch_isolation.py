@@ -40,7 +40,9 @@ def test_no_jax_or_tone_tpu_import(path):
     "tone_tpu_torch.ops.align_device", "tone_tpu_torch.training",
     "tone_tpu_torch.training.train", "tone_tpu_torch.checkpoint", "tone_tpu_torch.interop",
     "tone_tpu_torch.onnx_import", "tone_tpu_torch.export", "tone_tpu_torch.profiling",
-    "tone_tpu_torch.decoding.native.estimate"])
+    "tone_tpu_torch.decoding.native.estimate", "tone_tpu_torch.parallel",
+    "tone_tpu_torch.parallel.mesh", "tone_tpu_torch.parallel.collectives",
+    "tone_tpu_torch.parallel.ranks"])
 def test_import_leaves_jax_out_of_sys_modules(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "

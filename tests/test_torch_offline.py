@@ -166,13 +166,15 @@ def test_offline_forward_equals_chunked_streaming():
 
 
 def test_training_raises():
-    """What training still lacks raises: the data-parallel mesh (A14).
-    ``apply_offline(training=True)`` itself runs (the case below)."""
+    """A training mesh is a ``ProcessMesh`` of ranks: a device mesh of the
+    bulk and serving paths is refused.  ``apply_offline(training=True)``
+    itself runs (the case below)."""
+    from tone_tpu_torch.parallel.mesh import make_mesh
     from tone_tpu_torch.training import Trainer
 
     _, tc, _, _ = _models("float32")
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(tc, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="ProcessMesh"):
+        Trainer(tc, mesh=make_mesh(devices=["cpu"]), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

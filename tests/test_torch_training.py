@@ -627,8 +627,10 @@ def test_eval_wer_matches_jax():
 
 
 def test_trainer_mesh_raises():
+    """A mesh that is not a ``ProcessMesh`` is refused (the mesh cases are
+    tests/test_torch_parallel.py)."""
     _, tc, _, _ = _models()
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         TTR.Trainer(tc, mesh=object(), device="cpu")
 
 

@@ -2,11 +2,11 @@
 ``tone_tpu/__main__.py``): the ``serve``, ``transcribe``, ``eval``, ``align``,
 ``lm`` and ``export`` subcommands, with the flags the port supports.
 
-  python -m tone_tpu_torch serve [--port 8080] [--slots 256] [...]
+  python -m tone_tpu_torch serve [--port 8080] [--slots 256] [--data-parallel] [...]
   python -m tone_tpu_torch serve --decoder device-beam --lm lm.arpa [--fused-lm] [...]
   python -m tone_tpu_torch serve --decoder beam [--lm lm.arpa] [--interim-beam] [...]
-  python -m tone_tpu_torch transcribe AUDIO... [--batch-size N [--offline-forward]] [--json]
-  python -m tone_tpu_torch eval MANIFEST [--batch-size N] [--server ws://...]
+  python -m tone_tpu_torch transcribe AUDIO... [--batch-size N [--offline-forward] [--data-parallel]] [--json]
+  python -m tone_tpu_torch eval MANIFEST [--batch-size N [--data-parallel]] [--server ws://...]
   python -m tone_tpu_torch align MANIFEST [--out words.jsonl] [--batch-size 16]
   python -m tone_tpu_torch lm CORPUS OUT [--order 3] [--binary probing|trie] [--native]
   python -m tone_tpu_torch export DIR [--batch-sizes 1 8 64] [--nemo]
@@ -18,8 +18,10 @@ model in the JAX CLI.  Without one the model takes random weights from
 ``torch.Generator().manual_seed(0)``, which differ from the JAX CLI's
 (``jax.random.PRNGKey(0)``).  ``--chunk-ms`` sets the streaming chunk,
 ``--compile-cache`` (default ``$TONE_TPU_COMPILE_CACHE``) the directory the
-kernels build into.  ``--data-parallel`` waits for the data-parallel slice
-(ROADMAP A14); ``download`` needs the network and is not offered.
+kernels build into.  ``--data-parallel`` splits the bulk batch rows
+(``transcribe``/``eval`` with ``--batch-size``) or the serving slots
+(``serve``) over every GPU, one process driving them all
+(``parallel/mesh.py``).  ``download`` needs the network and is not offered.
 Everything runs on the GPU; ``--device cpu`` asks for the CPU.
 """
 
@@ -98,6 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "confidences (CTC forced alignment)")
     p_srv.add_argument("--force-evict-grace", type=float, default=None,
                        help="min quiet seconds before slot steal under pressure")
+    p_srv.add_argument("--data-parallel", action="store_true",
+                       help="split the stream slots over every GPU (--slots a "
+                            "multiple of the device count)")
     p_srv.add_argument("--nbest", type=int, default=0,
                        help="transcript events carry up to N scored "
                             "alternatives for every stream (needs a beam "
@@ -135,7 +140,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "attention) forward instead of the streaming chunk "
                            "scan")
     p_tr.add_argument("--data-parallel", action="store_true",
-                      help="not supported yet (ROADMAP A14)")
+                      help="with --batch-size: split batch rows over every GPU")
     _add_model_args(p_tr)
 
     p_ev = sub.add_parser("eval", help="corpus WER over a JSONL manifest")
@@ -149,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="the full-sequence (blocked-attention) forward instead "
                            "of the streaming chunk scan for batched eval")
     p_ev.add_argument("--data-parallel", action="store_true",
-                      help="not supported yet (ROADMAP A14)")
+                      help="split batched eval rows over every GPU (--batch-size a "
+                           "multiple of the device count)")
     _add_model_args(p_ev)
 
     p_al = sub.add_parser(
@@ -230,14 +236,32 @@ def build_model(args):
     return variables, config, decoder
 
 
+def _data_mesh(args):
+    """The data-parallel mesh of ``--data-parallel`` over every GPU (or, with
+    ``--device``, that device alone), else None."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from tone_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[args.device] if args.device else None)
+
+
 def build_engine(args):
     """The ``serve`` subcommand's engine from its parsed arguments (the
-    model of ``build_model``; not warmed up)."""
+    model of ``build_model``; not warmed up).  ``--data-parallel`` checks
+    the slot count against the device count before the model loads."""
+    from tone_tpu_torch.parallel.mesh import DATA_AXIS, arena_shardings
     from tone_tpu_torch.runtime.engine import MultiStreamEngine
 
+    mesh = _data_mesh(args)
+    if mesh is not None and args.slots % mesh.shape[DATA_AXIS]:
+        raise SystemExit(f"--data-parallel: --slots ({args.slots}) must be a "
+                         f"multiple of the device count ({mesh.shape[DATA_AXIS]})")
     variables, config, decoder = build_model(args)
+    sharding = None if mesh is None else arena_shardings(mesh, config, args.slots)
     return MultiStreamEngine(
-        variables, config, n_slots=args.slots, decoder=decoder, device=args.device,
+        variables, config, n_slots=args.slots, decoder=decoder,
+        device=None if mesh is not None else args.device, sharding=sharding,
         interim_transcripts=args.interim, interim_beam=args.interim_beam,
         interim_device_beam=args.interim_device_beam,
         interim_beam_width=args.interim_beam_width,
@@ -270,13 +294,14 @@ def _transcriber(pipeline, args, **kwargs):
     """The bulk transcriber over ``pipeline``'s model and decoder."""
     from tone_tpu_torch.offline import OfflineTranscriber
 
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError(
-            "--data-parallel: sharding bulk batches over devices "
-            "(tone_tpu/parallel/mesh.py) is not ported yet (ROADMAP A14)")
     model = pipeline.model
-    return OfflineTranscriber(model.variables, model.config, batch_size=args.batch_size,
-                              device=model.device, **kwargs)
+    mesh = _data_mesh(args)
+    try:
+        return OfflineTranscriber(model.variables, model.config, batch_size=args.batch_size,
+                                  device=None if mesh is not None else model.device,
+                                  mesh=mesh, **kwargs)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def _run_transcribe(args) -> None:

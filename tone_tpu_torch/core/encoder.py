@@ -149,29 +149,39 @@ def init_encoder_params(gen: torch.Generator, cfg: EncoderConfig) -> tuple[Param
 # ---------------------------------------------------------------------------
 
 
-def _feed_forward(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+def _feed_forward(p: Params, x: torch.Tensor, dtype, tp=None) -> torch.Tensor:
     """GLU-gated feed-forward: lin2(silu(lin1 x) * linv x).
 
     Serving weights carry the merged in-projection ``lin12``
     (acoustic.cast_params_for_inference): one (D, 2F) matmul, then the
     fused gate + output projection of ops/glu_ff.py — the Hopper kernel on
-    CUDA tensors, its plain version on CPU tensors."""
+    CUDA tensors, its plain version on CPU tensors.
+
+    Under tensor parallelism (``tp``, a ``ProcessMesh`` with more than one
+    model rank; training only) ``lin1``/``linv`` hold this rank's columns of
+    F and ``lin2`` its rows: ``x`` passes through ``copy_to_model`` and the
+    partial products of ``lin2`` are summed over the ranks before its bias."""
     if "lin12" in p:
         return glu_ff2(L.linear(p["lin12"], x, dtype), p["lin2"], dtype)
+    reduce = None
+    if tp is not None:
+        x, reduce = tp.copy_to_model(x), tp.reduce_from_model
     gate = L.silu(L.linear(p["lin1"], x, dtype))
-    return L.linear(p["lin2"], gate * L.linear(p["linv"], x, dtype), dtype)
+    return L.linear(p["lin2"], gate * L.linear(p["linv"], x, dtype), dtype, reduce)
 
 
 def _conv_module(p: Params, bn_stats: Params, x: torch.Tensor,
                  conv_state: torch.Tensor | None, kernel_size: int, dtype,
                  pad_mask: torch.Tensor | None = None, training: bool = False,
-                 ) -> tuple[torch.Tensor, torch.Tensor | None, Params]:
+                 mesh=None) -> tuple[torch.Tensor, torch.Tensor | None, Params]:
     """pointwise -> GLU -> causal depthwise (over conv_state ‖ x) -> BN
     -> SiLU -> pointwise, feature-last.
 
     ``conv_state`` None (offline) pads with kernel-1 zeros instead, the
     same as a zero state; ``pad_mask`` (B, T), True on padding frames
-    (offline only), zeroes those frames before the depthwise conv.
+    (offline only), zeroes those frames before the depthwise conv;
+    ``mesh`` makes the training BatchNorm's statistics global
+    (``layers.batchnorm``).
     Returns (output, next conv_state or None, BatchNorm statistics)."""
     d = x.shape[-1]
     y = L.glu(L.linear(p["pw1"], x, dtype), dim=-1)  # (B, T, D)
@@ -183,17 +193,19 @@ def _conv_module(p: Params, bn_stats: Params, x: torch.Tensor,
         padded = torch.cat([conv_state.to(y.dtype), y], dim=1)
         next_state = padded[:, -(kernel_size - 1):, :]
     y = L.conv1d_nhc(p["dw"], padded, stride=1, groups=d, compute_dtype=dtype)
-    y, new_bn = L.batchnorm(p["bn"], bn_stats, y, channel_axis=2, training=training)
+    y, new_bn = L.batchnorm(p["bn"], bn_stats, y, channel_axis=2, training=training,
+                            mesh=mesh)
     y = L.linear(p["pw2"], L.silu(y), dtype)
     return y, next_state, new_bn
 
 
 def _subsampling(p: Params, stats: Params, cfg: EncoderConfig, feats: torch.Tensor,
                  sub_states: tuple[torch.Tensor, torch.Tensor] | None,
-                 dtype, training: bool = False,
+                 dtype, training: bool = False, mesh=None,
                  ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None, Params]:
     """Conv subsampling (x3 in time) with carried input tails; ``sub_states``
-    None (offline) prepends zero tails, the same as zero states.
+    None (offline) prepends zero tails, the same as zero states.  ``mesh``
+    as in ``_conv_module``.
 
     Returns ((B, T_out, d_model), next tails or None, BatchNorm statistics)."""
     sub_lens = cfg.subsampling_state_lens
@@ -209,7 +221,7 @@ def _subsampling(p: Params, stats: Params, cfg: EncoderConfig, feats: torch.Tens
             new_states.append(x[:, :, -sub_lens[i]:, :])
         x = L.conv2d(p[conv_name], x, cfg.subsampling_strides[i], dtype)
         x, new_bn = L.batchnorm(p[bn_name], stats[bn_name], x, channel_axis=1,
-                                training=training)
+                                training=training, mesh=mesh)
         stats = {**stats, bn_name: new_bn}
         x = L.silu(x)
 
@@ -253,7 +265,7 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
                      dtype, pad_mask: torch.Tensor | None = None,
                      blocked: tuple[int, int, torch.Tensor] | None = None,
                      generators: dict[str, torch.Generator] | None = None,
-                     training: bool = False):
+                     training: bool = False, mesh=None):
     """One Macaron Conformer block.
 
     ``blocked`` = (chunk, left_context, lengths) routes the attention through
@@ -263,14 +275,24 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
     In training, ``generators`` holds one dropout generator per site
     (``DROPOUT_SITES``); without it no dropout applies.
 
+    ``mesh`` (a ``parallel.collectives.ProcessMesh``; the offline forward
+    only): this rank holds its data position's rows and, with more than
+    one model rank, the Megatron splits of the feed-forwards and the
+    attention (its heads).  Every dropout mask is cut from the one-device
+    mask (``layers.dropout``): rows for data, heads for model; the
+    activations that every model rank holds get the same mask on each.
+
     Returns (output, scores, new_mhsa_window or None, new_conv_state or None,
     BatchNorm statistics)."""
     gens = generators or {}
+    tp = mesh if mesh is not None and mesh.n_model > 1 else None
+    rows = ((0, mesh.data_rank, mesh.n_data),) if mesh is not None and mesh.n_data > 1 else ()
+    heads = rows + (((1, mesh.model_rank, mesh.n_model),) if tp is not None else ())
 
     def drop(site, v, rate):
-        return L.dropout(v, rate, training, gens.get(site))
+        return L.dropout(v, rate, training, gens.get(site), rows)
 
-    y = _feed_forward(p["ff1"], L.rmsnorm(p["norm_ff1"], x), dtype)
+    y = _feed_forward(p["ff1"], L.rmsnorm(p["norm_ff1"], x), dtype, tp)
     residual = x + drop("ff1", y, cfg.dropout) * 0.5
 
     a_in = L.rmsnorm(p["norm_att"], residual)
@@ -288,20 +310,23 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
                                    left_context=left_context, lengths=lengths,
                                    cached_scores=cached_scores, compute_dtype=dtype,
                                    dropout_generator=gens.get("att"),
-                                   dropout_rate=cfg.dropout_att, training=training)
+                                   dropout_rate=cfg.dropout_att, training=training,
+                                   tp=tp, dropout_shards=heads)
     else:
         y, scores = L.mhsa(p["att"], a_in, kv, n_heads=cfg.n_heads, rope_dim=cfg.rope_dim,
                            k_offset=k_offset, mask=att_mask, cached_scores=cached_scores,
                            compute_dtype=dtype, dropout_generator=gens.get("att"),
-                           dropout_rate=cfg.dropout_att, training=training)
+                           dropout_rate=cfg.dropout_att, training=training,
+                           tp=tp, dropout_shards=heads)
     residual = residual + drop("att_out", y, cfg.dropout)
 
     y, new_conv_state, new_bn = _conv_module(p["conv"], bn_stats["conv_bn"],
                                              L.rmsnorm(p["norm_conv"], residual), conv_state,
-                                             cfg.conv_kernel_size, dtype, pad_mask, training)
+                                             cfg.conv_kernel_size, dtype, pad_mask, training,
+                                             mesh)
     residual = residual + drop("conv", y, cfg.dropout)
 
-    y = _feed_forward(p["ff2"], L.rmsnorm(p["norm_ff2"], residual), dtype)
+    y = _feed_forward(p["ff2"], L.rmsnorm(p["norm_ff2"], residual), dtype, tp)
     residual = residual + drop("ff2", y, cfg.dropout) * 0.5
     return (L.rmsnorm(p["norm_out"], residual), scores, new_window, new_conv_state,
             {"conv_bn": new_bn})
@@ -429,7 +454,7 @@ def layer_generators(rng: int, layer: int, device: torch.device) -> dict[str, to
 def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
                     feats: torch.Tensor, lengths: torch.Tensor | None,
                     dtype=torch.bfloat16, blocked_attention: bool = True,
-                    rng: int | None = None, training: bool = False,
+                    rng: int | None = None, training: bool = False, mesh=None,
                     ) -> tuple[torch.Tensor, torch.Tensor, Params]:
     """Full-sequence forward with masks that exactly simulate streaming.
 
@@ -440,7 +465,9 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
     products.  In eval mode the BatchNorms read their running statistics;
     with ``training`` they normalize with batch statistics and return
     updated running ones, and dropout applies where ``rng`` (an integer
-    seed) is given.
+    seed) is given.  ``mesh``: this process is one rank of a training mesh
+    (``_conformer_layer``); ``feats`` are its rows and its parameters its
+    shards.
 
     Args:
         feats: (B, T_feat, feat_in).
@@ -461,7 +488,7 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
         out_len = torch.div(out_len - klen[0] + slen, stride[0], rounding_mode="floor") + 1
 
     x, _, pre_stats = _subsampling(params["pre_encode"], batch_stats["pre_encode"], cfg, feats,
-                                   None, dtype, training)
+                                   None, dtype, training, mesh)
     r = cfg.reduction_factor
     t = x.shape[1]
     t_red = -(-t // r)
@@ -500,7 +527,7 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
             params["layers"][i], batch_stats["layers"][i], x, cfg=cfg, mhsa_window=None,
             k_offset=0, att_mask=masks[group], cached_scores=cached_scores,
             conv_state=None, dtype=dtype, pad_mask=pad_red if in_reduced else pad_full,
-            blocked=blocks[group], generators=gens, training=training)
+            blocked=blocks[group], generators=gens, training=training, mesh=mesh)
         layer_stats.append(stats)
         if i == cfg.reduction_position:
             residual_pre_reduction = x

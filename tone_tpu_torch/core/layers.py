@@ -103,8 +103,14 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16,
+           reduce=None) -> torch.Tensor:
+    """``x @ w + b``.  ``reduce`` (a row-split product under tensor
+    parallelism) sums the float32 partial products over the model ranks
+    before the bias is added, once."""
     y = _mm(x.to(compute_dtype), p["w"].to(compute_dtype))
+    if reduce is not None:
+        y = reduce(y)
     if "b" in p:
         y = y + p["b"].float()
     return y.to(compute_dtype)
@@ -132,7 +138,7 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def batchnorm(p: Params, stats: Params, x: torch.Tensor, *, channel_axis: int,
               training: bool = False, momentum: float = 0.1,
-              eps: float = 1e-5) -> tuple[torch.Tensor, Params]:
+              eps: float = 1e-5, mesh=None) -> tuple[torch.Tensor, Params]:
     """BatchNorm over every axis except ``channel_axis``, in float32.
 
     Eval mode reads the running statistics (a scale and shift).  Training
@@ -142,6 +148,12 @@ def batchnorm(p: Params, stats: Params, x: torch.Tensor, *, channel_axis: int,
     ``var * n / (n - 1)``; they are detached.  Padded frames count as the
     reference counts them (ROADMAP §C).
 
+    ``mesh`` (a ``parallel.collectives.ProcessMesh`` with more than one data
+    rank) makes the batch statistics those of the global batch, every data
+    rank holding an equal share of its rows: the per-channel sum, then the
+    sum of squares about the global mean, each summed over the data ranks
+    inside autograd.
+
     Returns (output in ``x``'s dtype, statistics: updated or the ones given).
     """
     dtype = x.dtype
@@ -150,9 +162,15 @@ def batchnorm(p: Params, stats: Params, x: torch.Tensor, *, channel_axis: int,
     shape[channel_axis] = x.shape[channel_axis]
     if training:
         axes = tuple(i for i in range(x.ndim) if i != channel_axis)
-        mean = x32.mean(dim=axes)
-        var = x32.var(dim=axes, correction=0)
         n = math.prod(x.shape[i] for i in axes)
+        if mesh is None or mesh.n_data == 1:
+            mean = x32.mean(dim=axes)
+            var = x32.var(dim=axes, correction=0)
+        else:
+            n *= mesh.n_data
+            mean = mesh.sum_over_data(x32.sum(dim=axes)) / n
+            centered = x32 - mean.reshape(shape)
+            var = mesh.sum_over_data(centered.square().sum(dim=axes)) / n
         unbiased = var.detach() * (n / max(n - 1, 1))
         new_stats = {"mean": (1 - momentum) * stats["mean"] + momentum * mean.detach(),
                      "var": (1 - momentum) * stats["var"] + momentum * unbiased}
@@ -182,17 +200,27 @@ def mix_seed(*values: int) -> int:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None, shards: tuple = ()) -> torch.Tensor:
     """Inverted dropout: keeps each element with probability ``1 - rate``
     and scales it by ``1 / (1 - rate)``.  The mask is drawn from
     ``generator`` (on ``x``'s device), never from the global RNG, so that a
     recomputed forward that seeds it alike draws the same mask.  The
     identity when not training, at rate 0 or without a generator (as the
-    reference skips dropout without a key)."""
+    reference skips dropout without a key).
+
+    ``shards``: ``(dim, index, count)`` for each dimension of which ``x``
+    is the ``index``-th of ``count`` equal parts (a rank's rows or heads):
+    the mask is drawn for the whole and this part is cut from it, so every
+    mesh applies the one-device mask."""
     if not training or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    for dim, _, count in shards:
+        shape[dim] *= count
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    for dim, index, _ in shards:
+        mask = mask.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -280,6 +308,8 @@ def mhsa(
     dropout_generator: torch.Generator | None = None,
     dropout_rate: float = 0.0,
     training: bool = False,
+    tp=None,
+    dropout_shards: tuple = (),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotary multi-head attention with optional score reuse.
 
@@ -297,13 +327,19 @@ def mhsa(
         mask: optional boolean (B, Tq, Tkv); True = masked.
         cached_scores: if given, reuse these (B, H, Tq, Tkv) float32 scores
             and skip the q/k path (score-sharing layers have no q/k weights).
+        tp: tensor parallelism (``_tp_heads``): the q/k/v weights hold this
+            rank's heads and ``linear_out`` their input rows.
+        dropout_shards: this rank's part of the weights' rows and heads
+            (``dropout``).
 
     Returns:
-        (output (B, Tq, D), scores (B, H, Tq, Tkv) float32).
+        (output (B, Tq, D), scores (B, H, Tq, Tkv) float32; H is this
+        rank's heads under ``tp``).
     """
     b, tq, d = query.shape
     tkv = kv.shape[1]
     d_head = d // n_heads
+    p, query, kv, n_heads, reduce = _tp_heads(tp, p, query, kv, n_heads)
 
     if cached_scores is None:
         q = linear(p["linear_q"], query, compute_dtype).reshape(b, tq, n_heads, d_head)
@@ -325,12 +361,34 @@ def mhsa(
         attn = torch.softmax(s.masked_fill(m, -10000.0), dim=-1).masked_fill(m, 0.0)
     else:
         attn = torch.softmax(s, dim=-1)
-    attn = dropout(attn, dropout_rate, training, dropout_generator)
+    attn = dropout(attn, dropout_rate, training, dropout_generator, dropout_shards)
 
     ctx = _mm(attn.to(compute_dtype), v).to(compute_dtype)
-    ctx = ctx.transpose(1, 2).reshape(b, tq, d)
-    out = linear(p["linear_out"], ctx, compute_dtype)
+    ctx = ctx.transpose(1, 2).reshape(b, tq, n_heads * d_head)
+    out = linear(p["linear_out"], ctx, compute_dtype, reduce)
     return out, scores
+
+
+def _tp_heads(tp, p: Params, query, kv, n_heads: int):
+    """Megatron's split of the attention: ``(p, query, kv, local heads,
+    reduce)``.  Under tensor parallelism (``tp``, a ``ProcessMesh`` with
+    more than one model rank) the inputs pass through ``copy_to_model``
+    (its backward sums their gradients over the model ranks), each rank
+    computes ``n_heads / n_model`` heads, and ``linear_out``'s row-split
+    product is summed over the ranks (``reduce``).  The per-head q/k
+    LayerNorm parameters are replicated but see only this rank's heads, so
+    they pass through ``copy_to_model`` too: their gradient is the sum over
+    the ranks' heads, the same on every rank."""
+    if tp is None:
+        return p, query, kv, n_heads, None
+    if n_heads % tp.n_model:
+        raise ValueError(f"{n_heads} heads do not split over {tp.n_model} model ranks")
+    same = kv is query
+    query = tp.copy_to_model(query)
+    kv = query if same else tp.copy_to_model(kv)
+    p = {k: ({n: tp.copy_to_model(t) for n, t in v.items()} if k in ("q_ln", "k_ln") else v)
+         for k, v in p.items()}
+    return p, query, kv, n_heads // tp.n_model, tp.reduce_from_model
 
 
 def _block_window(xb: torch.Tensor, n_window_chunks: int) -> torch.Tensor:
@@ -358,6 +416,8 @@ def mhsa_blocked(
     dropout_generator: torch.Generator | None = None,
     dropout_rate: float = 0.0,
     training: bool = False,
+    tp=None,
+    dropout_shards: tuple = (),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunk-local attention as dense per-chunk blocks (the offline path).
 
@@ -371,22 +431,23 @@ def mhsa_blocked(
     Returns (output (B, T, D), scores (B, H, n, c, w+c) float32); the scores
     are reusable as ``cached_scores`` by the score-sharing layers of the
     same mask group, as ``mhsa``'s are.  Training dropout on the attention
-    weights as in ``mhsa``.
+    weights, and tensor parallelism, as in ``mhsa``.
     """
     b, t, d = x.shape
     d_head = d // n_heads
+    p, x, _, n_heads, reduce = _tp_heads(tp, p, x, x, n_heads)
     if left_context % chunk:
         raise ValueError(f"left_context {left_context} is not a multiple of chunk {chunk}")
     nw = left_context // chunk
     n = -(-t // chunk)
-    tp = n * chunk
+    tp_len = n * chunk
 
     def blocked(proj):  # (B, T, H, dh) -> (B, H, n, c, dh)
-        proj = F.pad(proj.transpose(1, 2), (0, 0, 0, tp - t))
+        proj = F.pad(proj.transpose(1, 2), (0, 0, 0, tp_len - t))
         return proj.reshape(b, n_heads, n, chunk, d_head)
 
     def rope(xb):  # RoPE positions are absolute: applied on the padded (B, H, Tp, dh)
-        return apply_rope(xb.reshape(b, n_heads, tp, d_head), rope_dim, 0).reshape(
+        return apply_rope(xb.reshape(b, n_heads, tp_len, d_head), rope_dim, 0).reshape(
             b, n_heads, n, chunk, d_head)
 
     if cached_scores is None:
@@ -407,14 +468,15 @@ def mhsa_blocked(
     dev = x.device
     cols = ((torch.arange(n, device=dev)[:, None] - nw) * chunk
             + torch.arange((nw + 1) * chunk, device=dev))                  # (n, w+c)
-    rows = torch.arange(tp, device=dev).reshape(n, chunk)                 # (n, c)
+    rows = torch.arange(tp_len, device=dev).reshape(n, chunk)             # (n, c)
     lens = lengths.to(dev)[:, None, None]
     col_ok = (cols[None] >= 0) & (cols[None] < lens)                      # (B, n, w+c)
     row_ok = rows[None] < lens                                            # (B, n, c)
     m = ~(row_ok[:, :, :, None] & col_ok[:, :, None, :])[:, None]         # (B, 1, n, c, w+c)
 
     attn = torch.softmax(scores.float().masked_fill(m, -10000.0), dim=-1).masked_fill(m, 0.0)
-    attn = dropout(attn, dropout_rate, training, dropout_generator)
+    attn = dropout(attn, dropout_rate, training, dropout_generator, dropout_shards)
     ctx = _mm(attn.to(compute_dtype), vwin).to(compute_dtype)             # (B, H, n, c, dh)
-    ctx = ctx.reshape(b, n_heads, tp, d_head).transpose(1, 2)[:, :t].reshape(b, t, d)
-    return linear(p["linear_out"], ctx, compute_dtype), scores
+    ctx = ctx.reshape(b, n_heads, tp_len, d_head).transpose(1, 2)[:, :t]
+    return linear(p["linear_out"], ctx.reshape(b, t, n_heads * d_head), compute_dtype,
+                  reduce), scores

@@ -120,7 +120,7 @@ def apply_streaming(variables: dict[str, Params], config: ToneConfig,
 def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch.Tensor,
                   lengths: torch.Tensor | None = None,
                   constants: FrontendConstants | None = None, rng: int | None = None,
-                  training: bool = False, blocked_attention: bool = True,
+                  training: bool = False, blocked_attention: bool = True, mesh=None,
                   ) -> tuple[torch.Tensor, torch.Tensor, dict[str, Params]]:
     """Full-sequence forward of whole utterances: inference, or the training
     forward.
@@ -136,6 +136,9 @@ def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch
             otherwise the forward runs under ``torch.no_grad``.
         blocked_attention: chunk-local attention as per-chunk blocks (the
             default) or as masked (T, T) products.
+        mesh: a ``parallel.collectives.ProcessMesh`` when this process is
+            one rank of a training mesh: ``audio`` holds its rows and
+            ``variables`` its parameter shards (``training.train``).
 
     Returns:
         (logprobs (B, T_frames_out, vocab+1) float32, output lengths (B,),
@@ -155,7 +158,7 @@ def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch
         encoded, out_len, stats = encoder_offline(
             variables["params"]["encoder"], variables["batch_stats"], config.encoder,
             feats, feat_lens, dtype, blocked_attention=blocked_attention, rng=rng,
-            training=training)
+            training=training, mesh=mesh)
         return _head(variables["params"]["head"], encoded), out_len, stats
 
 

@@ -18,6 +18,17 @@ on the device before the host splits and decodes batch ``i``.  Each
 batch's logprobs are copied into pinned host memory without blocking, and
 only that copy's event is waited on, so the wait does not include the next
 batch's queued work.
+
+With ``mesh`` (``parallel.mesh.make_mesh``, a ``data`` axis only) the
+batch rows are split evenly over the mesh's data devices, as the JAX
+package shards them: the batch size must be a multiple of the data axis,
+checked at construction, and the last batch is padded with zero rows to
+an even split (those rows are dropped).  Each device holds a replica of
+the inference weights (one per distinct device) and runs its rows through
+the chosen forward; every device's rows are queued before any is waited
+on, so the devices overlap, and each device keeps the two-deep pipeline.
+The logprobs are gathered in row order, then split and decoded as on one
+device.
 """
 
 from __future__ import annotations
@@ -29,10 +40,10 @@ import numpy as np
 import torch
 
 from tone_tpu_torch.acoustic import cast_params_for_inference
-from tone_tpu_torch.bridge import to_device
 from tone_tpu_torch.config import ToneConfig
 from tone_tpu_torch.core.model import apply_offline, apply_streaming, init_streaming_state
 from tone_tpu_torch.device import resolve_device
+from tone_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, replicate
 from tone_tpu_torch.pipeline import TextPhrase, phrase_times
 from tone_tpu_torch.splitter import StreamingLogprobSplitter
 
@@ -41,7 +52,8 @@ __all__ = ["OfflineTranscriber"]
 
 @dataclass
 class OfflineTranscriber:
-    """Batched utterance transcription on one device."""
+    """Batched utterance transcription on one device, or on the data devices
+    of a mesh."""
 
     variables: dict
     config: ToneConfig
@@ -49,38 +61,47 @@ class OfflineTranscriber:
     batch_size: int = 16
     bucket_samples: int = 8 * 2400  # pad lengths up to multiples of this
     use_offline_forward: bool = False  # full-sequence forward instead of the scan
-    mesh: object = None  # data-parallel batches: not ported yet (ROADMAP A14)
+    mesh: Mesh | None = None  # split batch rows over the mesh's data devices
     word_timestamps: bool = False  # per-word times + confidences on phrases
     device: str | torch.device | None = None  # cuda unless the caller asks for the CPU
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "OfflineTranscriber(mesh=...): data-parallel bulk transcription "
-                "(tone_tpu/parallel/mesh.py) is not ported yet (ROADMAP A14)")
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            devices = [resolve_device(self.device)]
+        else:
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(f"OfflineTranscriber(mesh=...) takes a parallel.mesh.Mesh, "
+                                f"not {type(self.mesh).__name__}")
+            if self.device is not None:
+                raise ValueError("OfflineTranscriber: give a device or a mesh, not both")
+            devices = [resolve_device(d) for d in self.mesh.data_devices()]
+            if self.batch_size % len(devices):
+                raise ValueError(f"batch_size {self.batch_size} must be a multiple of the "
+                                 f"mesh '{DATA_AXIS}' axis size {len(devices)}")
+        self.device = devices[0]
         if self.decoder is None:
             from tone_tpu_torch.decoder import GreedyCTCDecoder
 
             self.decoder = GreedyCTCDecoder()
-        self.variables = to_device(cast_params_for_inference(self.variables, self.config),
-                                   self.device)
+        self._shards = list(zip(devices, replicate(
+            cast_params_for_inference(self.variables, self.config), devices)))
+        self.variables = self._shards[0][1]
         self._splitter = StreamingLogprobSplitter()
 
-    def _chunk_scan(self, chunks: torch.Tensor) -> torch.Tensor:
+    def _chunk_scan(self, variables, chunks: torch.Tensor) -> torch.Tensor:
         """(B, n_chunks, chunk_samples) -> (B, n_chunks * frames, V)."""
-        state = init_streaming_state(self.config, chunks.shape[0], device=self.device)
+        state = init_streaming_state(self.config, chunks.shape[0], device=chunks.device)
         out = []
         for i in range(chunks.shape[1]):
-            logprobs, state = apply_streaming(self.variables, self.config, chunks[:, i], state)
+            logprobs, state = apply_streaming(variables, self.config, chunks[:, i], state)
             out.append(logprobs)
         return torch.cat(out, dim=1)
 
-    def _offline_forward(self, chunks: torch.Tensor) -> torch.Tensor:
+    def _offline_forward(self, variables, chunks: torch.Tensor) -> torch.Tensor:
         b, n, c = chunks.shape
         # No lengths: padding chunks are processed as the scan processes them
         # (as zero audio), keeping the two forwards interchangeable.
-        logprobs, _, _ = apply_offline(self.variables, self.config, chunks.reshape(b, n * c))
+        logprobs, _, _ = apply_offline(variables, self.config, chunks.reshape(b, n * c))
         return logprobs
 
     def transcribe(self, audios: Sequence[np.ndarray]) -> list[list[TextPhrase]]:
@@ -117,8 +138,9 @@ class OfflineTranscriber:
             finish(pending)
 
     def _launch(self, idx, audios):
-        """Queue one batch's forward and the copy of its logprobs to the host;
-        returns (idx, row_chunks, host logprobs, copy event) without waiting."""
+        """Queue one batch's forward on every device and the copies of its
+        logprobs to the host; returns (idx, row_chunks, host logprobs, copy
+        events) without waiting."""
         cfg = self.config
         pad = cfg.padding
         chunk = cfg.audio_chunk_samples
@@ -127,28 +149,37 @@ class OfflineTranscriber:
         # rows padded to a shared, bucketed chunk count
         row_chunks = [-(-len(a) // chunk) for a in batch_audios]
         n_chunks = -(-max(row_chunks) // bucket_chunks) * bucket_chunks
-        audio_arr = np.zeros((len(idx), n_chunks * chunk), np.int32)
+        # Zero rows pad the batch to an even split over the devices (dropped
+        # after the forward).
+        n_rows = -(-len(idx) // len(self._shards)) * len(self._shards)
+        per = n_rows // len(self._shards)
+        audio_arr = np.zeros((n_rows, n_chunks * chunk), np.int32)
         for row, a in enumerate(batch_audios):
             audio_arr[row, :len(a)] = a
-        chunks = torch.from_numpy(audio_arr.reshape(len(idx), n_chunks, chunk))
+        chunks = torch.from_numpy(audio_arr.reshape(n_rows, n_chunks, chunk))
         if self.device.type == "cuda":
-            chunks = chunks.pin_memory().to(self.device, non_blocking=True)
+            chunks = chunks.pin_memory()
+        chunks = [chunks[k * per:(k + 1) * per].to(dev, non_blocking=True)
+                  for k, (dev, _) in enumerate(self._shards)]
         forward = self._offline_forward if self.use_offline_forward else self._chunk_scan
-        logprobs = forward(chunks)
+        logprobs = [forward(variables, c) for (_, variables), c in zip(self._shards, chunks)]
         if self.device.type != "cuda":
-            return idx, row_chunks, logprobs, None
-        host = torch.empty(logprobs.shape, dtype=torch.float32, pin_memory=True)
-        host.copy_(logprobs, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return idx, row_chunks, host, event
+            return idx, row_chunks, torch.cat(logprobs), []
+        host = torch.empty((n_rows, *logprobs[0].shape[1:]), dtype=torch.float32,
+                           pin_memory=True)
+        events = []
+        for k, lp in enumerate(logprobs):
+            host[k * per:(k + 1) * per].copy_(lp, non_blocking=True)
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(lp.device))
+        return idx, row_chunks, host, events
 
     @staticmethod
     def _wait(launched):
         """(idx, row_chunks, numpy logprobs) of a launched batch, once its
-        copy to the host is done."""
-        idx, row_chunks, logprobs, event = launched
-        if event is not None:
+        copies to the host are done."""
+        idx, row_chunks, logprobs, events = launched
+        for event in events:
             event.synchronize()
         return idx, row_chunks, logprobs.numpy()
 

@@ -106,7 +106,7 @@ class MultiStreamEngine:
     MAX_STACKED_HOTWORD_BYTES = 32 * 1024 * 1024
 
     def __init__(self, variables, config: ToneConfig, n_slots: int = 256,
-                 decoder=None, device=None, decode_workers: int = 8,
+                 decoder=None, device=None, sharding=None, decode_workers: int = 8,
                  interim_transcripts: bool = False,
                  interim_beam: bool = False,
                  interim_device_beam: bool = False,
@@ -159,7 +159,11 @@ class MultiStreamEngine:
         buffer up to ``candidate_buffer_chunks`` chunks host-side and bind
         oldest-first as slots free (Triton's max_candidate_sequences).
 
-        ``device``: ``cuda`` unless the caller asks for the CPU."""
+        ``device``: ``cuda`` unless the caller asks for the CPU.
+        ``sharding``: instead, the slots split over a mesh's data devices
+        (``StreamArena``, ``parallel.mesh.arena_shardings``); the engine's
+        device, on which the device decoder and the interim beam arena run,
+        is then the first data device."""
         if decoder is not None and not callable(getattr(decoder, "forward", None)):
             raise TypeError(f"decoder {type(decoder).__name__} has no forward(logprobs)")
         if nbest and (nbest < 0 or nbest > self.MAX_NBEST):
@@ -172,7 +176,7 @@ class MultiStreamEngine:
             raise ValueError("nbest > 1 needs a beam decoder (greedy has no "
                              "alternative hypotheses)")
         self.config = config
-        self.arena = StreamArena(variables, config, n_slots, device=device)
+        self.arena = StreamArena(variables, config, n_slots, device=device, sharding=sharding)
         self.device_finals = isinstance(decoder, DeviceBeamSearchCTCDecoder)
         if self.device_finals:
             # A copy pinned to the engine's device and one batch bucket: the

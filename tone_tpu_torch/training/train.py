@@ -1,4 +1,5 @@
-"""Fine-tuning on one GPU (port of ``tone_tpu/training/train.py``).
+"""Fine-tuning on one GPU or on a mesh of ranks (port of
+``tone_tpu/training/train.py``).
 
 The reference's recipe: AdamW, a linear warmup over 5 % of the steps and a
 linear decay to zero, lr 5e-5, bf16 compute with float32 parameters and
@@ -20,8 +21,26 @@ package uses (``make_optimizer``):
 Dropout masks are pure functions of the step's seed, the layer and the site
 (``core.encoder.layer_generators``), so a rematerialized forward draws the
 same masks.  ``save``/``restore`` use ``torch.save``'s format (the JAX
-package writes orbax checkpoints).  One device only: the data-parallel mesh
-is ROADMAP A14.
+package writes orbax checkpoints).
+
+On a mesh (``Trainer(mesh=ProcessMesh(n_data, n_model))``, one process per
+mesh position, ``parallel/``) every rank is given the global batch and
+takes its data position's rows (the batch must split evenly); it holds its
+model position's shards of the parameters and of the Adam moments
+(``parallel.mesh.param_spec``: Megatron column and row splits of the
+feed-forwards and the attention heads).  Inside the forward the
+BatchNorms use the global batch statistics and each dropout mask is cut
+from the one-device mask.  The gradients, and the loss, are averaged over
+the data ranks before clipping: the CTC loss is a batch mean of equal
+shards, so the average is the one-device gradient.  The gradients of the
+replicated leaves are also averaged over the model ranks, which all
+compute them in full, so that the card's non-repeatable backward cannot
+let the replicas drift apart.  The global-norm clip
+sums the squares of the split leaves over the model ranks and counts each
+replicated leaf once.  AdamW acts elementwise on the shards.  ``save``
+writes the full, unsharded state (rank 0 writes), so that a checkpoint of
+any mesh restores on one device, and ``restore`` shards it again.
+``eval_wer`` splits the rows over the data ranks and gathers the tokens.
 """
 
 from __future__ import annotations
@@ -41,6 +60,8 @@ from tone_tpu_torch.config import LABELS, ToneConfig
 from tone_tpu_torch.core.layers import mix_seed
 from tone_tpu_torch.core.model import apply_offline
 from tone_tpu_torch.device import resolve_device
+from tone_tpu_torch.parallel.collectives import ProcessMesh, shard_along
+from tone_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, param_shardings, param_specs
 from tone_tpu_torch.training.ctc import ctc_loss
 from tone_tpu_torch.training.wer import word_error_rate
 
@@ -127,11 +148,24 @@ def _unflatten(tree, leaves: list):
     return tree_map(lambda _: next(it), tree)
 
 
-def clip_by_global_norm(g: list, max_norm: float) -> list:
+def clip_by_global_norm(g: list, max_norm: float, split: list[bool] | None = None,
+                        mesh: ProcessMesh | None = None) -> list:
     """New tensors: ``g`` if its global norm is below ``max_norm``, else
     ``g / norm * max_norm`` (optax's formula; no epsilon), chosen on the
-    device without a host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+    device without a host sync.
+
+    Under tensor parallelism, ``split[i]`` says ``g[i]`` is this rank's
+    shard of a leaf split over the model ranks of ``mesh``: the squares of
+    the split leaves are summed over the model ranks, and each replicated
+    leaf, which every model rank holds whole, counts once."""
+    norms = torch._foreach_norm(g)
+    if split is not None and any(split):
+        squares = torch.stack(norms).square()
+        is_split = torch.tensor(split, device=squares.device)
+        norm = (squares[~is_split].sum()
+                + mesh.sum_over_model(squares[is_split].sum())).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     keep = norm < max_norm
     one = torch.ones((), device=norm.device)
     g = torch._foreach_div(g, torch.where(keep, one, norm))
@@ -142,11 +176,14 @@ def clip_by_global_norm(g: list, max_norm: float) -> list:
 class Optimizer:
     """Global-norm clipping and AdamW on the schedule, with optional
     gradient accumulation: ``make_optimizer``'s transformation.  Works on
-    trees of float32 tensors with multi-tensor (``torch._foreach_*``) ops."""
+    trees of float32 tensors with multi-tensor (``torch._foreach_*``) ops.
+    On a ``mesh`` with model ranks the trees hold this rank's shards, and the
+    clip's norm is the global one (``clip_by_global_norm``)."""
 
-    def __init__(self, cfg: TrainerConfig) -> None:
+    def __init__(self, cfg: TrainerConfig, mesh: ProcessMesh | None = None) -> None:
         self.config = cfg
         self.schedule = make_lr_schedule(cfg)
+        self.mesh = mesh
 
     def init(self, params) -> AdamState | MultiStepsState:
         def zeros():
@@ -166,8 +203,11 @@ class Optimizer:
         accumulates) and the state.  The state's tensors are updated in
         place."""
         g, p = tree_leaves(grads), tree_leaves(params)
+        split = None
+        if self.mesh is not None and self.mesh.n_model > 1:
+            split = [MODEL_AXIS in spec for spec in param_specs(params)]
         if isinstance(state, AdamState):
-            return _unflatten(grads, self._adamw(g, state, p)), state
+            return _unflatten(grads, self._adamw(g, state, p, split)), state
         acc = tree_leaves(state.acc_grads)
         delta = torch._foreach_sub(g, acc)
         torch._foreach_div_(delta, float(state.mini_step + 1))
@@ -176,14 +216,14 @@ class Optimizer:
         state.mini_step = (state.mini_step + 1) % self.config.grad_accum_steps
         if not emit:
             return None, state
-        updates = self._adamw(acc, state.inner_opt_state, p)
+        updates = self._adamw(acc, state.inner_opt_state, p, split)
         torch._foreach_zero_(acc)
         state.gradient_step += 1
         return _unflatten(grads, updates), state
 
-    def _adamw(self, g: list, state: AdamState, p: list) -> list:
+    def _adamw(self, g: list, state: AdamState, p: list, split: list[bool] | None) -> list:
         """Clip ``g`` to the global norm, then one AdamW step: the updates."""
-        g = clip_by_global_norm(g, self.config.max_grad_norm)
+        g = clip_by_global_norm(g, self.config.max_grad_norm, split, self.mesh)
         mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
         torch._foreach_mul_(mu, ADAM_B1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - ADAM_B1))
@@ -206,8 +246,8 @@ class Optimizer:
         return updates
 
 
-def make_optimizer(cfg: TrainerConfig) -> Optimizer:
-    return Optimizer(cfg)
+def make_optimizer(cfg: TrainerConfig, mesh: ProcessMesh | None = None) -> Optimizer:
+    return Optimizer(cfg, mesh)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -219,29 +259,36 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 class Trainer:
-    """Fine-tuning steps of the acoustic model on one device."""
+    """Fine-tuning steps of the acoustic model on one device, or on this
+    rank's device of a training mesh."""
 
     def __init__(self, model_config: ToneConfig, trainer_config: TrainerConfig | None = None,
-                 mesh=None, device: str | torch.device | None = None) -> None:
-        """``device``: ``cuda`` unless the caller asks for the CPU."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the multi-GPU data-parallel mesh "
-                "(tone_tpu/parallel/mesh.py) is not ported yet (ROADMAP A14)")
+                 mesh: ProcessMesh | None = None,
+                 device: str | torch.device | None = None) -> None:
+        """``mesh``: this rank's ``parallel.collectives.ProcessMesh``, or None
+        for one device.  ``device``: ``cuda`` unless the caller asks for the
+        CPU."""
+        if mesh is not None and not isinstance(mesh, ProcessMesh):
+            raise TypeError(f"Trainer(mesh=...) takes a parallel.collectives.ProcessMesh "
+                            f"(one process per mesh position), not {type(mesh).__name__}")
+        if mesh is not None and model_config.encoder.n_heads % mesh.n_model:
+            raise ValueError(f"{model_config.encoder.n_heads} heads do not split over "
+                             f"{mesh.n_model} model ranks")
         self.model_config = model_config
         self.config = trainer_config or TrainerConfig()
         if self.config.remat not in REMAT_POLICIES:
             raise ValueError(f"remat {self.config.remat!r} is not one of {REMAT_POLICIES}")
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.optimizer = make_optimizer(self.config)
+        self.optimizer = make_optimizer(self.config, mesh)
 
     # -- state -------------------------------------------------------------
 
     def create_state(self, variables: dict[str, Any]) -> TrainState:
         """A fresh train state from ``{"params", "batch_stats"}`` (copied to
-        float32 tensors on the trainer's device; the parameters require
-        grad)."""
-        params = tree_map(self._param, variables["params"])
+        float32 tensors on the trainer's device, this rank's shards on a
+        mesh; the parameters require grad)."""
+        params = tree_map(self._param, self._shard(variables["params"], variables["params"]))
         return TrainState(step=0, params=params,
                           batch_stats=tree_map(self._tensor, variables["batch_stats"]),
                           opt_state=self.optimizer.init(params), rng=self.config.seed)
@@ -252,22 +299,59 @@ class Trainer:
     def _param(self, t) -> torch.Tensor:
         return self._tensor(t).requires_grad_(True)
 
+    def _shard(self, tree, params):
+        """This rank's model shards of ``tree``, a tree that mirrors the full
+        ``params`` (the tree itself without a mesh)."""
+        if self.mesh is None:
+            return tree
+        specs = [s.spec for s in tree_leaves(param_shardings(self.mesh, params))]
+        return _unflatten(tree, [shard_along(torch.as_tensor(t), spec, self.mesh)
+                                 for t, spec in zip(tree_leaves(tree), specs)])
+
+    def _full(self, trees: list, params) -> list:
+        """The full trees of this rank's shards ``trees`` (each mirrors
+        ``params``), gathered over the model ranks in one all-reduce."""
+        leaves = [[t.detach() for t in tree_leaves(tree)] for tree in trees]
+        if self.mesh is None or self.mesh.n_model == 1:
+            return [_unflatten(tree, ls) for tree, ls in zip(trees, leaves)]
+        specs = param_specs(params)
+        where = [(k, i) for k in range(len(trees)) for i, spec in enumerate(specs)
+                 if MODEL_AXIS in spec]
+        fulls = self.mesh.gather_model_split([leaves[k][i] for k, i in where],
+                                             [specs[i] for _, i in where])
+        for (k, i), full in zip(where, fulls):
+            leaves[k][i] = full
+        return [_unflatten(tree, ls) for tree, ls in zip(trees, leaves)]
+
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` rows."""
+        if self.mesh is None:
+            return slice(0, n)
+        if n % self.mesh.n_data:
+            raise ValueError(f"a batch of {n} rows must be a multiple of the mesh "
+                             f"'{DATA_AXIS}' axis size ({self.mesh.n_data})")
+        per = n // self.mesh.n_data
+        return slice(self.mesh.data_rank * per, (self.mesh.data_rank + 1) * per)
+
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return tuple(torch.as_tensor(np.asarray(batch[k])).to(self.device)
-                     for k in ("input_values", "input_lengths", "labels"))
+        arrays = [torch.as_tensor(np.asarray(batch[k]))
+                  for k in ("input_values", "input_lengths", "labels")]
+        rows = self._rows(arrays[0].shape[0])
+        return tuple(a[rows].to(self.device) for a in arrays)
 
     # -- steps -------------------------------------------------------------
 
     def _forward(self, params, batch_stats, seed: int, audio, lengths):
         return apply_offline({"params": params, "batch_stats": batch_stats},
                              self.model_config, audio, lengths, rng=seed, training=True,
-                             blocked_attention=self.config.blocked_attention)
+                             blocked_attention=self.config.blocked_attention, mesh=self.mesh)
 
     def compute_gradients(self, state: TrainState, batch: dict, seed: int | None = None,
                           ) -> tuple[torch.Tensor, Any, Any]:
         """The loss, the gradient tree and the updated BatchNorm statistics
         of ``batch`` at ``state`` (nothing is updated).  ``seed`` is the
-        dropout seed, by default the one ``train_step`` would use next."""
+        dropout seed, by default the one ``train_step`` would use next.  On a
+        mesh, the loss and gradients are averaged over the data ranks."""
         if seed is None:
             seed = mix_seed(state.rng, 1)
         audio, lengths, labels = self._batch(batch)
@@ -285,7 +369,18 @@ class Trainer:
             leaves = tree_leaves(state.params)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        return loss.detach(), _unflatten(state.params, grads), new_stats
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss, *grads = self.mesh.average_over_data([loss, *grads])
+            if self.mesh.n_model > 1:
+                # Every model rank computes the replicated leaves' gradients
+                # in full, but the card's backward is not bit-repeatable:
+                # their average keeps the replicas equal.
+                rep = [i for i, spec in enumerate(param_specs(state.params))
+                       if MODEL_AXIS not in spec]
+                for i, g in zip(rep, self.mesh.average_over_model([grads[i] for i in rep])):
+                    grads[i] = g
+        return loss, _unflatten(state.params, grads), new_stats
 
     def train_step(self, state: TrainState, batch: dict[str, np.ndarray],
                    ) -> tuple[TrainState, torch.Tensor]:
@@ -307,43 +402,75 @@ class Trainer:
     def eval_wer(self, state: TrainState, batches: Iterable[dict],
                  references: list[str]) -> float:
         """Greedy-decode ``batches`` and compute the corpus WER against
-        ``references``."""
+        ``references`` (on a mesh: the data ranks split each batch, its
+        last row repeated to an even split, and gather the tokens)."""
         variables = {"params": state.params, "batch_stats": state.batch_stats}
         hyps: list[str] = []
         for batch in batches:
-            audio, lengths, _ = self._batch(batch)
-            logprobs, out_lens, _ = apply_offline(variables, self.model_config, audio, lengths)
-            tokens = logprobs.argmax(-1).cpu().numpy()
-            for row, n in zip(tokens, out_lens.cpu().tolist()):
-                collapsed = (t for t, _ in groupby(row[:n].tolist()))
+            audio, lengths = (torch.as_tensor(np.asarray(batch[k]))
+                              for k in ("input_values", "input_lengths"))
+            n = audio.shape[0]
+            if self.mesh is not None:
+                pad = -n % self.mesh.n_data
+                audio = torch.cat([audio, audio[-1:].expand(pad, -1)])
+                lengths = torch.cat([lengths, lengths[-1:].expand(pad)])
+            rows = self._rows(audio.shape[0])
+            logprobs, out_lens, _ = apply_offline(variables, self.model_config,
+                                                  audio[rows].to(self.device),
+                                                  lengths[rows].to(self.device),
+                                                  mesh=self.mesh)
+            tokens = torch.cat([logprobs.argmax(-1), out_lens[:, None]], dim=1)
+            if self.mesh is not None:
+                # The rows of every data rank, through a sum of zeros.
+                full = tokens.new_zeros((audio.shape[0], tokens.shape[1]))
+                full[rows] = tokens
+                tokens = self.mesh.all_reduce(full, self.mesh.data_group)[:n]
+            for *row, length in tokens.cpu().tolist():
+                collapsed = (t for t, _ in groupby(row[:length]))
                 hyps.append("".join(LABELS[t] for t in collapsed if t < len(LABELS)).strip())
         return word_error_rate(hyps, references)
 
     # -- checkpoint/resume -------------------------------------------------
 
     def save(self, path, state: TrainState) -> None:
-        """Write the whole train state under the directory ``path``."""
+        """Write the whole train state under the directory ``path``: on a
+        mesh every rank calls it, the full state is gathered and rank 0
+        writes it."""
         path = Path(path)
-        path.mkdir(parents=True, exist_ok=True)
 
         def host(tree):
             return tree_map(lambda t: t.detach().cpu(), tree)
 
         opt = state.opt_state
         adam = opt.inner_opt_state if isinstance(opt, MultiStepsState) else opt
-        record = {"step": state.step, "rng": state.rng, "params": host(state.params),
+        accumulating = isinstance(opt, MultiStepsState)
+        trees = [state.params, adam.mu, adam.nu] + ([opt.acc_grads] if accumulating else [])
+        params, mu, nu, *acc = self._full(trees, state.params)
+        record = {"step": state.step, "rng": state.rng, "params": host(params),
                   "batch_stats": host(state.batch_stats),
-                  "adam": {"count": adam.count, "mu": host(adam.mu), "nu": host(adam.nu)}}
-        if isinstance(opt, MultiStepsState):
+                  "adam": {"count": adam.count, "mu": host(mu), "nu": host(nu)}}
+        if accumulating:
             record["accumulation"] = {"mini_step": opt.mini_step,
                                       "gradient_step": opt.gradient_step,
-                                      "acc_grads": host(opt.acc_grads)}
-        torch.save(record, path / STATE_FILE)
+                                      "acc_grads": host(acc[0])}
+        if self.mesh is None or self.mesh.rank == 0:
+            path.mkdir(parents=True, exist_ok=True)
+            torch.save(record, path / STATE_FILE)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore(self, path, template: TrainState | None = None) -> TrainState:
-        """The train state written by ``save``, on the trainer's device.  With
-        ``template``, the parameters must have its structure and shapes."""
+        """The train state written by ``save``, on the trainer's device (this
+        rank's shards on a mesh).  With ``template``, the parameters must
+        have its structure and shapes."""
         record = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+        full = record["params"]
+        record["params"] = self._shard(full, full)
+        record["adam"]["mu"] = self._shard(record["adam"]["mu"], full)
+        record["adam"]["nu"] = self._shard(record["adam"]["nu"], full)
+        if "accumulation" in record:
+            acc = record["accumulation"]
+            acc["acc_grads"] = self._shard(acc["acc_grads"], full)
         if template is not None:
             def shapes(tree):
                 return tree_map(lambda t: tuple(t.shape), tree)
