@@ -63,9 +63,10 @@ prints one JSON line per phase:
             and device ms per call, launches per frame, idle share at every
             bucket (the fused variants at 64 … 512, and also at 1024 and
             2048 with ``--profile-check``); the LM-free, LM and hotword
-            variants held against the same decoder on the CPU at every
-            bucket, the fused ones at 64, 128 and 256 (equal top texts, best
-            scores within 1e-3); with ``--profile-check``, each profile also
+            variants held against the same decoder on the CPU at 64 … 512
+            (at every bucket with ``--profile-check``), the fused ones at 64,
+            128 and 256 (equal top texts, best scores within 1e-3); with
+            ``--profile-check``, each profile also
             read through ``key_averages()`` and each non-fused call profiled
             twice (adds minutes); the LM once more as a KenLM probing binary (equal texts
             at every bucket); the agreement of the ARPA and probing fused
@@ -135,7 +136,28 @@ prints one JSON line per phase:
             all-reduced bytes per step; one NCCL rank (a 1 x 1 mesh), its step
             saved: loss within 1e-5 of the step without a mesh, Adam's first
             moment within 1e-2 of it.  Two replicas or ranks on one card
-            measure correctness and overhead, not scaling.
+            measure correctness and overhead, not scaling;
+16. recipes  the port's recipes and quality studies on a trained model
+            (``tone_tpu_torch/examples``, ``tone_tpu_torch/dev``): the tiny
+            Conformer trained once, 150 steps in float32 from the JAX
+            recipe's seed-0 weights (ms per step), then: train WER < 0.05 and
+            at least 5 of 6 exact texts through the streaming pipeline (and,
+            reported only, the texts of the same recipe from the port's own
+            torch.Generator(0) weights); the same weights deployed in
+            bf16 (B1 at F=256, D=128: launches per step, and against its
+            plain version within 2e-2 at the deployment's row counts, timed),
+            its texts and logprobs against the float32 deployment's;
+            ``domain_adapt`` (order-3 KN LM as a KenLM binary, the fused
+            device search with a hotword, word times): at least one exact
+            text, every word time inside its utterance; the device beam
+            (width 32, n-best 8) agreeing with the host width-200 fusion on
+            at least 95 % of noisy utterances; ``hotword_quality`` at weights
+            0 and 2; ``finetune --synthetic --epochs 1`` at full width from a
+            .safetensors of random weights, ``--resume`` restoring its step,
+            and the saved model streamed through ``from_local`` with 32 B1
+            launches per step; ``device_lm_scale`` at 0.6e6 grams (build s,
+            device bytes, fused RTFx); ``debug_sequence``'s invariants at
+            full width.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line needs the kernels, serve, fused_kernels, fused_step and bulk
@@ -655,8 +677,12 @@ BEAM_TIE = 1e-5         # two beams closer than this may rank either way
 BEAM_HOTWORDS = ["да", "нет", "привет мир", "колокол"]
 # The fused variants' CPU reference runs at these buckets only: above them it
 # takes longer than the card's calls and would push the script past half its
-# time limit.  The other variants are held against the CPU at every bucket.
+# time limit.
 FUSED_CPU_BUCKETS = (64, 128, 256)
+# The other variants' CPU reference runs at these buckets, and with
+# --profile-check at every bucket: at 1024 and 2048 frames it takes about
+# 100 s on the card host's CPU, a third of the phase.
+CPU_BUCKETS = (64, 128, 256, 512)
 # The fused variants' calls above 512 frames are timed only (no CPU
 # reference) and take about 100 s with their profiles: they run with
 # --profile-check, so that the default run, bulk phase included, stays
@@ -794,7 +820,8 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
                 again = _device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
                 case.update(launches_again=again["launches"], device_ms_again=again["device_ms"])
             texts_by_variant[variant].append([h[0][0] if h else "" for h in got])
-            if fusion and t_pad not in FUSED_CPU_BUCKETS:
+            if t_pad not in (FUSED_CPU_BUCKETS if fusion else
+                             BEAM_BUCKETS if profile_check else CPU_BUCKETS):
                 rows.append(case)
                 continue
             t0 = time.perf_counter()
@@ -840,6 +867,7 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
                           "probe": dev_arpa.probe, "edge_probe": dev_arpa.edge_probe,
                           "probing_table_rows": int(dev_probing.keys1.shape[0])},
             "fused_cpu_buckets": list(FUSED_CPU_BUCKETS),
+            "cpu_buckets": list(BEAM_BUCKETS if profile_check else CPU_BUCKETS),
             "fused_buckets": list(BEAM_BUCKETS if profile_check else FUSED_DEFAULT_BUCKETS),
             "profile_check": profile_check,
             "fused_arpa_vs_probing_text_agreement": probing_agree,
@@ -2063,8 +2091,218 @@ def phase_parallel() -> dict:
             "train": {**train, "tol": PARALLEL_TRAIN_TOL}, "nccl_1x1": nccl}
 
 
+RECIPE_STEPS = 150           # the tiny model's training steps (tests/test_e2e_synthetic.py)
+RECIPE_MAX_WER = 0.05        # train WER of the trained tiny model
+RECIPE_MIN_AGREEMENT = 0.95  # device beam against the host width-200 fusion
+RECIPE_HOTWORD_WEIGHTS = (0.0, 2.0)
+RECIPE_HOTWORD_COPIES = 2    # noisy copies of each utterance per noise level
+RECIPE_LM_GRAMS = 600_000
+RECIPE_GLU_MS = (10, 5, 80, 640)  # the deployment's rows (B=1: 10 full-rate, 5 reduced)
+
+
+def _logprob_flips(a: np.ndarray, b: np.ndarray) -> dict:
+    """How far two deployments' logprobs of one utterance are apart: the
+    largest difference, the frames whose argmax differs, and the smallest
+    margin between the best two classes of those frames (a near-tie)."""
+    flips = np.flatnonzero(a.argmax(-1) != b.argmax(-1))
+    top2 = np.sort(a[flips], axis=-1)[:, -2:] if len(flips) else np.zeros((0, 2))
+    return {"max_abs_diff": float(np.abs(a - b).max()), "argmax_flips": int(len(flips)),
+            "min_flip_margin": float((top2[:, 1] - top2[:, 0]).min()) if len(flips) else None}
+
+
+def _stream_logprobs(model, samples: np.ndarray) -> np.ndarray:
+    """One utterance's logprobs through ``model.forward_native``, chunked
+    as the pipeline's ``forward_offline`` chunks it."""
+    a = np.pad(samples, (2400, 2400))
+    a = np.pad(a, (0, -len(a) % 2400))
+    state, out = None, []
+    for chunk in a.reshape(-1, 2400):
+        lp, state = model.forward_native(chunk[None], state)
+        out.append(lp[0].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def phase_recipes() -> dict:
+    import argparse
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoder import DecoderType
+    from tone_tpu_torch.dev import beam_quality_sweep, debug_sequence, device_lm_scale
+    from tone_tpu_torch.dev import hotword_quality
+    from tone_tpu_torch.examples import domain_adapt, finetune
+    from tone_tpu_torch.examples import train_tiny_e2e as tiny
+    from tone_tpu_torch.interop import save_torch_checkpoint
+    from tone_tpu_torch.ops.glu_ff import glu_ff2, glu_ff2_plain
+    from tone_tpu_torch.pipeline import StreamingCTCPipeline
+
+    out = {"phase": "recipes", "nvidia_smi": nvidia_smi()}
+    # 1. train once, then train -> deploy -> stream
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, trainer, state, collator, items = tiny.run_training(steps=RECIPE_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    batch = collator([{"input_values": it["audio"], "labels": it["text"]} for it in items])
+    wer = trainer.eval_wer(state, [batch], [it["text"] for it in items])
+    variables = tiny.trained_variables(state)
+    checked = items[:tiny.EVAL_ITEMS]
+    refs = [it["text"] for it in checked]
+    glu_ff2.launches = 0
+    pipe32 = tiny.deploy(cfg, variables, "cuda")
+    texts32 = tiny.stream_texts(pipe32, checked)
+    fp32_launches = glu_ff2.launches
+    hits = sum(t == r for t, r in zip(texts32, refs))
+    out["train"] = {"init": "jax.random.PRNGKey(0) (core/jax_random.py)",
+                    "steps": RECIPE_STEPS, "seconds": train_s,
+                    "ms_per_step": train_s / RECIPE_STEPS * 1e3, "wer": wer,
+                    "exact": hits, "checked": len(refs), "texts": texts32,
+                    "fp32_glu_launches": fp32_launches}
+    if not wer < RECIPE_MAX_WER:
+        raise AssertionError(f"recipes: train WER {wer} >= {RECIPE_MAX_WER}")
+    if hits < len(refs) - 1:
+        raise AssertionError(f"recipes: {hits}/{len(refs)} exact streaming texts: "
+                             f"{list(zip(texts32, refs))}")
+    if fp32_launches:
+        raise AssertionError(f"recipes: the float32 deployment launched B1 {fp32_launches} times")
+    # A control, reported and not held: the same recipe from the port's own
+    # torch.Generator(0) weights, whose model is known to emit letters on the
+    # pipeline's padding (train_tiny_e2e.run_training).
+    _, _, control, _, _ = tiny.run_training(
+        steps=RECIPE_STEPS, device="cuda",
+        variables=init_model_params(torch.Generator().manual_seed(0), cfg))
+    control_texts = tiny.stream_texts(tiny.deploy(cfg, tiny.trained_variables(control), "cuda"),
+                                      checked)
+    out["train"]["control_torch_init"] = {
+        "texts": control_texts, "exact": sum(t == r for t, r in zip(control_texts, refs))}
+
+    # 2. the same weights deployed in bf16: B1 at the tiny width
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    pipe16 = tiny.deploy(cfg16, variables, "cuda")
+    chunks = sum(-(-(len(it["audio"]) + 2 * cfg.padding) // cfg.audio_chunk_samples)
+                 for it in checked)
+    glu_ff2.launches = 0
+    texts16 = tiny.stream_texts(pipe16, checked)
+    launches16 = glu_ff2.launches
+    if launches16 != 2 * cfg.encoder.n_layers * chunks:
+        raise AssertionError(f"recipes: bf16 deployment launched B1 {launches16} times over "
+                             f"{chunks} steps, not {2 * cfg.encoder.n_layers} per step")
+    diffs = [_logprob_flips(_stream_logprobs(pipe16.model, tiny.int_audio(it["audio"])),
+                            _stream_logprobs(pipe32.model, tiny.int_audio(it["audio"])))
+             for it in checked]
+    p2 = pipe16.model.variables["params"]["encoder"]["layers"][0]["ff1"]["lin2"]
+    f, d = p2["w"].shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for m in RECIPE_GLU_MS:
+        av = torch.randn(m, 2 * f, device="cuda", generator=gen).to(torch.bfloat16)
+        y = glu_ff2(av, p2)
+        torch.cuda.synchronize()
+        err = (y.float() - glu_ff2_plain(av, p2).float()).abs().max().item()
+        if not err <= GLU_TOL:
+            raise AssertionError(f"glu_ff2 F={f} D={d} M={m}: max |kernel - plain| = "
+                                 f"{err} > {GLU_TOL}")
+        bound_ms, bound_by = glu_ff_bound_ms(m, f, d)
+        ms = device_time_ms(lambda: glu_ff2(av, p2), 200, "glu_ff2")
+        cases.append({"m": m, "max_abs_err": err, "ms": ms,
+                      "event_ms": cuda_time_ms(lambda: glu_ff2(av, p2), 200),
+                      "plain_ms": cuda_time_ms(lambda: glu_ff2_plain(av, p2), 50),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms})
+    out["bf16_deploy"] = {"f": f, "d": d, "glu_launches": launches16, "steps": chunks,
+                          "texts": texts16, "texts_equal_fp32": texts16 == texts32,
+                          "exact": sum(t == r for t, r in zip(texts16, refs)),
+                          "logprobs_vs_fp32": diffs, "glu_cases": cases, "tol": GLU_TOL}
+
+    # 3. domain adaptation on the trained weights
+    t0 = time.perf_counter()
+    da = domain_adapt.adapt(cfg, variables, items, "cuda")
+    words = 0
+    for n, phrases in zip(da["audio_samples"], da["results"]):
+        seconds = n / cfg.frontend.sample_rate
+        for w in (w for p in phrases for w in (p.words or ())):
+            words += 1
+            if not (0.0 <= w.start_time <= w.end_time <= seconds and 0 < w.confidence <= 1):
+                raise AssertionError(f"domain_adapt: word {w} outside its {seconds} s utterance")
+    if da["correct"] < 1:
+        raise AssertionError("domain_adapt: no exact match")
+    out["domain_adapt"] = {"seconds": time.perf_counter() - t0, "grams": da["grams"],
+                           "ppl": da["ppl"], "entity": da["entity"], "exact": da["correct"],
+                           "of": len(da["refs"]), "words": words,
+                           "texts": [" ".join(p.text for p in r if p.text)
+                                     for r in da["results"]]}
+
+    # 4. the device beam against the host width-200 fusion
+    t0 = time.perf_counter()
+    agree, dev_out, host_out = beam_quality_sweep.host_agreement(cfg, variables, device="cuda")
+    out["beam_agreement"] = {"seconds": time.perf_counter() - t0, "agreement": agree,
+                             "n": len(dev_out), "min": RECIPE_MIN_AGREEMENT}
+    if not agree >= RECIPE_MIN_AGREEMENT:
+        raise AssertionError(f"recipes: device beam agrees with host w200 on {agree}: "
+                             f"{list(zip(dev_out, host_out))}")
+
+    # 5. hotword biasing
+    t0 = time.perf_counter()
+    rows = hotword_quality.hotword_sweep(cfg, variables, items, RECIPE_HOTWORD_WEIGHTS,
+                                         copies=RECIPE_HOTWORD_COPIES, device="cuda")
+    out["hotwords"] = {"seconds": time.perf_counter() - t0, "copies": RECIPE_HOTWORD_COPIES,
+                       "rows": rows}
+
+    # 6. fine-tuning at full width from a released-format checkpoint
+    full = ToneConfig()
+    with tempfile.TemporaryDirectory(prefix="tone_finetune_") as tmp:
+        tmp = Path(tmp)
+        save_torch_checkpoint(tmp / "init.safetensors",
+                              init_model_params(torch.Generator().manual_seed(0), full), full)
+        argv = ["--synthetic", "--epochs", "1", "--init-checkpoint",
+                str(tmp / "init.safetensors"), "--out", str(tmp / "out")]
+        t0 = time.perf_counter()
+        first = finetune.run(finetune.build_parser().parse_args(argv), full)
+        first_s = time.perf_counter() - t0
+        resumed = finetune.run(finetune.build_parser().parse_args(
+            [*argv, "--resume", str(tmp / "out" / "train_state")]), full)
+        if resumed["resumed_at"] != first["step"] or resumed["step"] != 2 * first["step"]:
+            raise AssertionError(f"finetune --resume restored step {resumed['resumed_at']} "
+                                 f"(saved {first['step']}), ended at {resumed['step']}")
+        pipe = StreamingCTCPipeline.from_local(tmp / "out", decoder_type=DecoderType.GREEDY,
+                                               device="cuda")
+        sample = tiny.int_audio(finetune.synthetic_items()[0]["audio"])
+        steps = -(-(len(sample) + 2 * full.padding) // full.audio_chunk_samples)
+        glu_ff2.launches = 0
+        phrases = pipe.forward_offline(sample)
+        launches = glu_ff2.launches
+    if launches != 2 * full.encoder.n_layers * steps:
+        raise AssertionError(f"finetuned model: B1 launched {launches} times over {steps} "
+                             f"steps, not {2 * full.encoder.n_layers} per step")
+    losses = [x for e in first["epochs"] + resumed["epochs"] for x in e["losses"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"finetune: losses {losses}")
+    out["finetune"] = {"seconds": first_s, "steps": first["step"],
+                       "resumed_at": resumed["resumed_at"], "losses": losses,
+                       "wer": [e["wer"] for e in first["epochs"] + resumed["epochs"]],
+                       "glu_launches": launches, "stream_steps": steps,
+                       "phrases": len(phrases)}
+
+    # 7. the device LM at 0.6e6 grams
+    lm, grams, build = device_lm_scale.synth_device_lm(RECIPE_LM_GRAMS)
+    out["device_lm_scale"] = {**device_lm_scale.measure(lm, grams, 16, 64, "cuda"), **build}
+    del lm
+
+    # 8. the engine's sequence invariants at full width
+    dbg = debug_sequence.run_sequence(init_model_params(torch.Generator().manual_seed(0), full),
+                                      full, device="cuda")
+    if dbg["unique_shapes"] != 1 or not dbg["clean_reuse"] or len(set(dbg["norms"])) < 2:
+        raise AssertionError(f"debug_sequence: {dbg}")
+    out["debug_sequence"] = dbg
+    return out
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
-          "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel")
+          "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
+          "recipes")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -2099,7 +2337,13 @@ def kernel_summary(out: dict) -> dict:
                                             for r in out["parallel"]["bulk"]},
             "serve_two_replicas": out["parallel"]["serve"]["two_replicas"]["glu_launches"],
             "serve_two_replicas_ticks": out["parallel"]["serve"]["two_replicas"]["ticks"]}}
-           if "parallel" in out else {})}, {
+           if "parallel" in out else {}),
+        **({"tiny_width": {
+            "f": out["recipes"]["bf16_deploy"]["f"], "d": out["recipes"]["bf16_deploy"]["d"],
+            "launches": out["recipes"]["bf16_deploy"]["glu_launches"],
+            "cases": out["recipes"]["bf16_deploy"]["glu_cases"]},
+            "finetuned_launches": out["recipes"]["finetune"]["glu_launches"]}
+           if "recipes" in out else {})}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",

@@ -870,3 +870,51 @@ def test_tiny_data_parallel_on_two_replicas_of_the_card_matches_one_device(cuda)
                                 sharding=arena_shardings(mesh, cfg, 4))
     assert _engine_finals(sharded) == _engine_finals(
         MultiStreamEngine(variables, cfg, n_slots=4, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The recipes on a trained model (tone_tpu_torch/examples/train_tiny_e2e.py,
+# tone_tpu_torch/dev/beam_quality_sweep.py): the pins of
+# tests/test_e2e_synthetic.py, which the CPU suite never runs.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_trained():
+    """The tiny model trained 150 steps from seed 0 on the card (float32):
+    (config, trainer, state, collator, items)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (none here)")
+    from tone_tpu_torch.examples.train_tiny_e2e import run_training
+
+    return run_training(steps=150, device="cuda")
+
+
+def test_tiny_train_then_stream_is_exact_on_card(tiny_trained):
+    """Train WER < 0.05 and at least 5 of 6 exact streaming transcripts."""
+    from tone_tpu_torch.examples.train_tiny_e2e import (
+        EVAL_ITEMS,
+        deploy,
+        stream_texts,
+        trained_variables,
+    )
+
+    cfg, trainer, state, collator, items = tiny_trained
+    batch = collator([{"input_values": it["audio"], "labels": it["text"]} for it in items])
+    wer = trainer.eval_wer(state, [batch], [it["text"] for it in items])
+    assert wer < 0.05, wer
+    checked = items[:EVAL_ITEMS]
+    texts = stream_texts(deploy(cfg, trained_variables(state), "cuda"), checked)
+    hits = sum(t == it["text"] for t, it in zip(texts, checked))
+    assert hits >= len(checked) - 1, list(zip(texts, [it["text"] for it in checked]))
+
+
+def test_device_beam_agrees_with_host_beam_on_trained_model_on_card(tiny_trained):
+    """The device search at width 32 (n-best 8 rescored) agrees with the
+    host width-200 fusion on at least 95 % of noisy utterances."""
+    from tone_tpu_torch.dev.beam_quality_sweep import host_agreement
+    from tone_tpu_torch.examples.train_tiny_e2e import trained_variables
+
+    cfg, _, state, _, _ = tiny_trained
+    agree, dev_out, host_out = host_agreement(cfg, trained_variables(state), device="cuda")
+    assert agree >= 0.95, (agree, list(zip(dev_out, host_out)))

@@ -42,7 +42,12 @@ def test_no_jax_or_tone_tpu_import(path):
     "tone_tpu_torch.onnx_import", "tone_tpu_torch.export", "tone_tpu_torch.profiling",
     "tone_tpu_torch.decoding.native.estimate", "tone_tpu_torch.parallel",
     "tone_tpu_torch.parallel.mesh", "tone_tpu_torch.parallel.collectives",
-    "tone_tpu_torch.parallel.ranks"])
+    "tone_tpu_torch.parallel.ranks", "tone_tpu_torch.examples",
+    "tone_tpu_torch.examples.train_tiny_e2e", "tone_tpu_torch.examples.finetune",
+    "tone_tpu_torch.examples.domain_adapt", "tone_tpu_torch.examples.stream_client",
+    "tone_tpu_torch.dev", "tone_tpu_torch.dev.beam_quality_sweep",
+    "tone_tpu_torch.dev.hotword_quality", "tone_tpu_torch.dev.device_lm_scale",
+    "tone_tpu_torch.dev.debug_sequence", "tone_tpu_torch.core.jax_random"])
 def test_import_leaves_jax_out_of_sys_modules(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "

@@ -59,3 +59,13 @@ def test_plan_headers_are_the_ones_the_kernels_read():
 def test_package_data_names_only_existing_files():
     for root, pattern in _package_data():
         assert list(root.glob(pattern)), f"{root.relative_to(REPO)}/{pattern} matches nothing"
+
+
+@pytest.mark.parametrize("package", ["tone_tpu_torch.examples", "tone_tpu_torch.dev"])
+def test_recipe_subpackages_are_found(package):
+    """pyproject.toml's ``packages.find`` ships the port's recipes."""
+    from setuptools import find_packages
+
+    find = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "packages"]["find"]
+    assert package in find_packages(str(REPO), include=find["include"])

@@ -10,6 +10,7 @@
   python -m tone_tpu_torch align MANIFEST [--out words.jsonl] [--batch-size 16]
   python -m tone_tpu_torch lm CORPUS OUT [--order 3] [--binary probing|trie] [--native]
   python -m tone_tpu_torch export DIR [--batch-sizes 1 8 64] [--nemo]
+  python -m tone_tpu_torch download DIR [--only-acoustic]
 
 The model comes from ``--checkpoint`` (default ``$TONE_TPU_MODEL_DIR``): the
 port's checkpoint directory, a reference torch checkpoint (.safetensors,
@@ -21,7 +22,8 @@ model in the JAX CLI.  Without one the model takes random weights from
 kernels build into.  ``--data-parallel`` splits the bulk batch rows
 (``transcribe``/``eval`` with ``--batch-size``) or the serving slots
 (``serve``) over every GPU, one process driving them all
-(``parallel/mesh.py``).  ``download`` needs the network and is not offered.
+(``parallel/mesh.py``).  ``download`` needs the network, which the port's
+machines do not have: it exits non-zero, naming it.
 Everything runs on the GPU; ``--device cpu`` asks for the CPU.
 """
 
@@ -79,6 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="tone_tpu_torch",
                                      description="streaming ASR on PyTorch/CUDA")
     sub = parser.add_subparsers(dest="command", required=True)
+    p_dl = sub.add_parser("download", help="download artifacts from HF Hub (needs the network)")
+    p_dl.add_argument("download_dir", type=Path)
+    p_dl.add_argument("--only-acoustic", action="store_true")
+
     p_srv = sub.add_parser("serve", help="websocket ASR server")
     p_srv.add_argument("--host", default="0.0.0.0")
     p_srv.add_argument("--port", type=int, default=8080)
@@ -537,7 +543,15 @@ def _run_export(args) -> None:
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.command == "serve":
+    if args.command == "download":
+        from tone_tpu_torch.pipeline import StreamingCTCPipeline
+
+        try:
+            StreamingCTCPipeline.download_from_hugging_face(
+                args.download_dir, only_acoustic=args.only_acoustic)
+        except NotImplementedError as e:
+            raise SystemExit(f"download: {e}") from None
+    elif args.command == "serve":
         import asyncio
         import logging
 

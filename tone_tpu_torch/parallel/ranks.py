@@ -11,8 +11,8 @@ and where ranks share a GPU (gloo reduces CUDA tensors through the host).
 
 The rank program, ``python -m tone_tpu_torch.parallel.ranks SPEC OUT``
 (started by ``train_on_mesh``), reads a ``torch.save``'d spec: the model
-and trainer configurations, the full variables, one collated batch, the
-number of steps and the mesh shape.  It trains that many steps on its
+and trainer configurations, the full variables, one collated batch (or
+one per step), the number of steps and the mesh shape.  It trains that many steps on its
 mesh position, optionally evaluates the WER and saves, restores and
 resumes the state, and writes ``OUT/rank<r>.json``: its losses, ms and
 all-reduced bytes per step.
@@ -137,10 +137,11 @@ def _sync(device: torch.device) -> None:
 def main(argv: list[str] | None = None) -> int:
     """The rank program.  The spec holds ``config`` (``ToneConfig.to_dict``),
     ``trainer`` (``TrainerConfig`` fields), ``variables`` (full, on the
-    CPU), ``batch`` (a collated batch as tensors), ``steps``, ``n_data``,
-    ``n_model`` and optionally ``references`` (WER of the batch after the
-    steps) and ``save`` (save, restore and take one more step from both the
-    restored and the live state)."""
+    CPU), ``batch`` (a collated batch as tensors, taken at every step) or
+    ``batches`` (one per step, in turn), ``steps``, ``n_data``, ``n_model``
+    and optionally ``references`` (WER of the last batch after the steps)
+    and ``save`` (save, restore and take one more step on the last batch
+    from both the restored and the live state)."""
     from tone_tpu_torch.config import ToneConfig
     from tone_tpu_torch.parallel.collectives import ProcessMesh
     from tone_tpu_torch.training.train import Trainer, TrainerConfig
@@ -154,9 +155,11 @@ def main(argv: list[str] | None = None) -> int:
         trainer = Trainer(ToneConfig.from_dict(spec["config"]),
                           TrainerConfig(**spec["trainer"]), mesh=mesh, device=device)
         state = trainer.create_state(spec["variables"])
-        batch = {k: np.asarray(v) for k, v in spec["batch"].items()}
+        batches = [{k: np.asarray(v) for k, v in b.items()}
+                   for b in spec.get("batches", [spec.get("batch")])]
         losses, ms, reduced = [], [], []
-        for _ in range(spec["steps"]):
+        for step in range(spec["steps"]):
+            batch = batches[step % len(batches)]
             _sync(device)
             t0, b0 = time.perf_counter(), mesh.bytes_reduced
             state, loss = trainer.train_step(state, batch)
