@@ -157,7 +157,25 @@ prints one JSON line per phase:
             and the saved model streamed through ``from_local`` with 32 B1
             launches per step; ``device_lm_scale`` at 0.6e6 grams (build s,
             device bytes, fused RTFx); ``debug_sequence``'s invariants at
-            full width.
+            full width;
+17. bench   the port's measurement tools (``tone_tpu_torch/bench.py``,
+            ``tone_tpu_torch/dev/{tick_bench,load_test,train_bench,align_bench}.py``)
+            at full width from the JAX bench's initial weights: the step sweep
+            at B = 128, 512, 1024, 1280 (ms per step, RTFx, peak memory per
+            stream; chains of 10 and 40 steps; B1's launches over it; the largest
+            batch profiled: device ms, idle share) and B1 at its rows there
+            and in the tick (M = 5,120, 6,400, 10,240 and 12,800) against its
+            plain version; the engine tick
+            at 1,024 slots (host, device and tick p50/p95, memory per slot, 32
+            B1 launches per tick) and the splitter's worst case there; the
+            websocket load test against spawned ``serve --device cuda --slots
+            64`` processes (real-time and firehose rounds at 16 and 64 streams,
+            a round with n-best 4 and 8 hotword streams on a device-beam
+            server, a 15 s soak whose RSS must stay flat, and SIGTERM under 64
+            live streams: every stream flushed and closed with 4503); the train
+            bench (B = 16 clips of 10 s, without and with ``remat="full"``: step
+            ms, audio s per s, peak memory); the align bench with ``--kernel``
+            (device and host words equal).
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line needs the kernels, serve, fused_kernels, fused_step and bulk
@@ -266,7 +284,7 @@ BULK_MS = (33280, 16640)
 GLU_MS = BULK_MS + (2560, 1280, 640, 320, 160, 80, 37, 10)
 
 
-def glu_ff_cases(device):
+def glu_ff_cases(device, ms=GLU_MS):
     """(m, av, p2) at F=1536, D=384 for the row counts of the bulk forward
     and the serving path: 10*B in full-rate layers and 5*B in reduced ones,
     for B in 256, 64, 16, plus ragged tails (37 and 10 rows)."""
@@ -274,7 +292,7 @@ def glu_ff_cases(device):
 
     gen = torch.Generator(device=device).manual_seed(0)
     f, d = 1536, 384
-    for m in GLU_MS:
+    for m in ms:
         av = torch.randn(m, 2 * f, device=device, generator=gen).to(torch.bfloat16)
         w = (torch.randn(f, d, device=device, generator=gen) * 0.02).to(torch.bfloat16)
         b = torch.randn(d, device=device, generator=gen) * 0.01
@@ -307,34 +325,39 @@ def device_time_ms(fn, iters: int, name: str | None = None) -> float:
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
-def phase_kernels() -> dict:
+def glu_ff_row(m, av, p2) -> dict:
+    """B1 on one case: against its plain version (raises beyond GLU_TOL),
+    its device time per launch (profiler) and CUDA-event time over 200
+    launches, the plain version's time, the bound and, as a yardstick,
+    cuBLAS's product alone on the gate computed beforehand."""
     import torch
 
     from tone_tpu_torch.ops.glu_ff import _plan, _sm_count, glu_ff2, glu_ff2_plain
 
-    rows = []
-    for m, av, p2 in glu_ff_cases("cuda"):
-        f, d = p2["w"].shape
-        y = glu_ff2(av, p2)
-        torch.cuda.synchronize()
-        ref = glu_ff2_plain(av, p2)
-        err = (y.float() - ref.float()).abs().max().item()
-        if not err <= GLU_TOL:
-            raise AssertionError(f"glu_ff2 M={m}: max |kernel - plain| = {err} > {GLU_TOL}")
-        event_ms = cuda_time_ms(lambda: glu_ff2(av, p2), 200)
-        ms = device_time_ms(lambda: glu_ff2(av, p2), 200, "glu_ff2")
-        plain_ms = cuda_time_ms(lambda: glu_ff2_plain(av, p2), 50)
-        # cuBLAS's product alone, on the gate computed beforehand: a yardstick
-        a32 = av[:, :f].float()
-        g = (a32 * torch.sigmoid(a32)).to(torch.bfloat16) * av[:, f:]
-        b16 = p2["b"].to(torch.bfloat16)
-        gemm_ms = device_time_ms(lambda: torch.addmm(b16, g, p2["w"]), 200)
-        bound_ms, bound_by = glu_ff_bound_ms(m, f, d)
-        plan = _plan(m, f, d, _sm_count(torch.cuda.current_device()))
-        rows.append({"m": m, "max_abs_err": err, "ms": ms, "event_ms": event_ms,
-                     "plain_ms": plain_ms, "gemm_ms": gemm_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bound_share": bound_ms / ms,
-                     "tile": "big" if plan.big else "small", "grid": list(plan.grid)})
+    f, d = p2["w"].shape
+    y = glu_ff2(av, p2)
+    torch.cuda.synchronize()
+    ref = glu_ff2_plain(av, p2)
+    err = (y.float() - ref.float()).abs().max().item()
+    if not err <= GLU_TOL:
+        raise AssertionError(f"glu_ff2 M={m}: max |kernel - plain| = {err} > {GLU_TOL}")
+    event_ms = cuda_time_ms(lambda: glu_ff2(av, p2), 200)
+    ms = device_time_ms(lambda: glu_ff2(av, p2), 200, "glu_ff2")
+    plain_ms = cuda_time_ms(lambda: glu_ff2_plain(av, p2), 50)
+    a32 = av[:, :f].float()
+    g = (a32 * torch.sigmoid(a32)).to(torch.bfloat16) * av[:, f:]
+    b16 = p2["b"].to(torch.bfloat16)
+    gemm_ms = device_time_ms(lambda: torch.addmm(b16, g, p2["w"]), 200)
+    bound_ms, bound_by = glu_ff_bound_ms(m, f, d)
+    plan = _plan(m, f, d, _sm_count(torch.cuda.current_device()))
+    return {"m": m, "max_abs_err": err, "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "gemm_ms": gemm_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "tile": "big" if plan.big else "small", "grid": list(plan.grid)}
+
+
+def phase_kernels() -> dict:
+    rows = [glu_ff_row(m, av, p2) for m, av, p2 in glu_ff_cases("cuda")]
     return {"phase": "kernels", "kernel": "glu_ff2", "f": 1536, "d": 384, "tol": GLU_TOL,
             "ms": "device time per launch (torch.profiler), back to back",
             "cases": rows}
@@ -2300,9 +2323,161 @@ def phase_recipes() -> dict:
     return out
 
 
+BENCH_BATCHES = (128, 512, 1024, 1280)   # bench.py's sweep on a card
+BENCH_STEPS = (10, 40)        # the sweep's two chains (bench.py: 20 and 120)
+BENCH_PROFILED_STEPS = 3      # profiled steps at the largest batch
+# B1's rows in the sweep at B = 512 ... 1280 and the 1,024-slot tick (5 B reduced,
+# 10 B full-rate) that GLU_MS lacks
+BENCH_GLU_MS = (5120, 6400, 10240, 12800)
+TICK_SLOTS = 1024             # dev/tick_bench.py's default
+TICK_TICKS = 30               # tick_bench's default
+LOAD_SLOTS = 64
+LOAD_STREAMS = (16, 64)       # dev/load_test.py's default rounds
+LOAD_SECONDS = 6.0            # its default utterance
+LOAD_SOAK_SECONDS = 15.0
+LOAD_NBEST, LOAD_HOTWORD_STREAMS = 4, 8
+TRAIN_BENCH_STEPS = 8         # train_bench's default: chains of 8 and 24 steps
+ALIGN_BENCH_ITERS = 5         # (align_bench: 20)
+
+
+def _bench_sweep() -> dict:
+    """bench.py's step sweep at full width, B1's launches over it, the
+    profile of the largest batch reached, and B1 at that batch's rows."""
+    import torch
+
+    from tone_tpu_torch import bench
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    model = bench.bench_model(torch.device("cuda"))
+    glu_ff2.launches = 0
+    rows = bench.sweep(model, BENCH_BATCHES, BENCH_STEPS)
+    launches = glu_ff2.launches
+    done = [r for r in rows if "rtfx" in r]
+    # step_stats: one chain of 5 steps, then two chains of each length
+    steps = 5 + 2 * sum(BENCH_STEPS)
+    if launches != 32 * steps * len(done):
+        raise AssertionError(f"{launches} GLU launches over {len(done)} batches of {steps} steps")
+    if len(done) < len(BENCH_BATCHES) and "oom" not in rows[-1]:
+        raise AssertionError(f"the sweep stopped early: {rows}")
+    top = done[-1]
+    chunk = torch.as_tensor(np.random.default_rng(0).integers(
+        -20000, 20000, (top["batch"], model.config.audio_chunk_samples)), dtype=torch.int32,
+        device="cuda")
+    state = model.init_state(top["batch"])
+    for _ in range(3):
+        _, state = model.forward_native(chunk, state)
+    profile = _profile_steps(lambda s: model.forward_native(chunk, s)[1], state,
+                             BENCH_PROFILED_STEPS)
+    del model, state
+    torch.cuda.empty_cache()
+    glu = [glu_ff_row(m, av, p2) for m, av, p2 in glu_ff_cases("cuda", BENCH_GLU_MS)]
+    return {"rows": rows, "headline": bench.headline(rows, torch.device("cuda")),
+            "steps": BENCH_STEPS, "glu_launches": launches,
+            "profiled_batch": top["batch"],
+            "device_idle_share": 1.0 - profile["device_ms_per_step"] / top["ms_per_step"],
+            **profile, "glu_cases": glu}
+
+
+def _bench_tick() -> dict:
+    """dev/tick_bench.py at 1,024 slots (B1 launched 32 times on every
+    tick, the warmup tick too) and the splitter's worst case there."""
+    import torch
+
+    from tone_tpu_torch.dev import tick_bench
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    glu_ff2.launches = 0
+    report = tick_bench.bench(TICK_SLOTS, TICK_TICKS, device="cuda")
+    launches = glu_ff2.launches
+    if launches != 32 * (TICK_TICKS + 1):
+        raise AssertionError(f"{launches} GLU launches over {TICK_TICKS} + 1 ticks")
+    phrases = report.pop("phrases")
+    torch.cuda.empty_cache()
+    return {**report, "glu_launches": launches,
+            "phrases": sum(len(p) for p in phrases.values()),
+            "splitter_worst": tick_bench.splitter_worst_case(TICK_SLOTS, 40)}
+
+
+async def _bench_load() -> dict:
+    """dev/load_test.py against spawned ``serve --device cuda`` processes:
+    the default rounds (real time and firehose) on a greedy server, a round
+    with n-best and request hotwords on a device-beam server, the soak and
+    the shutdown under load.  Every stream must end cleanly (its socket
+    closed by the server after its flush)."""
+    from tone_tpu_torch.dev import load_test
+
+    rounds = []
+
+    def check(report):
+        # every stream's audio has a silence mid-way, which closes a phrase
+        if (report["completed"] != report["streams"] or report["delivered"] != report["streams"]
+                or report["phrases_total"] < report["streams"]):
+            raise AssertionError(f"load test: not every stream ended cleanly: {report}")
+        rounds.append(report)
+
+    exits = []
+    async with load_test.spawned_server(LOAD_SLOTS, "cuda") as (proc, url, _):
+        for realtime in (True, False):
+            for n in LOAD_STREAMS:
+                check({**await load_test.run_round(url, n, LOAD_SECONDS, realtime),
+                       "realtime": realtime})
+    exits.append(proc.returncode)
+    t0 = time.perf_counter()
+    async with load_test.spawned_server(LOAD_SLOTS, "cuda",
+                                        ["--decoder", "device-beam"]) as (proc, url, _):
+        ready_s = time.perf_counter() - t0
+        check({**await load_test.run_round(url, LOAD_SLOTS, LOAD_SECONDS, True,
+                                           nbest=LOAD_NBEST,
+                                           hotword_streams=LOAD_HOTWORD_STREAMS),
+               "realtime": True, "decoder": "device-beam", "ready_s": ready_s})
+    exits.append(proc.returncode)
+    soak = await load_test.soak(LOAD_SLOTS, LOAD_SOAK_SECONDS, LOAD_SECONDS, device="cuda")
+    if (not soak["flat"] or soak["completed"] != soak["streams_total"]
+            or soak["phrases_total"] < soak["streams_total"]):
+        raise AssertionError(f"soak: {soak}")
+    shutdown = await load_test.shutdown_mid_load(LOAD_SLOTS, LOAD_SECONDS, device="cuda")
+    if not shutdown["ok"]:
+        raise AssertionError(f"shutdown under load: {shutdown}")
+    # Every server drained and exited by itself: none is left holding the card.
+    exits += [soak["exit_code"], shutdown["exit_code"]]
+    if exits != [0] * 4:
+        raise AssertionError(f"a spawned server did not exit cleanly: {exits}")
+    return {"slots": LOAD_SLOTS, "rounds": rounds, "soak": soak, "shutdown": shutdown,
+            "server_exit_codes": exits}
+
+
+def phase_bench() -> dict:
+    """The measurement tools of the port on the card, at full width (see
+    the module docstring, 17)."""
+    import asyncio
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.jax_random import jax_init_model_params
+    from tone_tpu_torch.dev import align_bench, train_bench
+
+    out = {"phase": "bench"}
+    for name, fn in (("sweep", _bench_sweep), ("tick", _bench_tick),
+                     ("load", lambda: asyncio.run(_bench_load()))):
+        t0 = time.perf_counter()
+        out[name] = {**fn(), "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cfg = ToneConfig()
+    variables = jax_init_model_params(0, cfg)  # the train bench's weights, drawn once
+    out["train"] = [train_bench.measure(steps=TRAIN_BENCH_STEPS, remat=remat, device="cuda",
+                                        config=cfg, variables=variables)
+                    for remat in (None, "full")]
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["first_loss"]) for r in out["train"]):
+        raise AssertionError(f"train bench: a loss is not finite: {out['train']}")
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["align"] = align_bench.measure(iters=ALIGN_BENCH_ITERS, kernel=True, device="cuda")
+    out["align_s"] = time.perf_counter() - t0
+    return out
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
-          "recipes")
+          "recipes", "bench")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -2322,7 +2497,8 @@ def kernel_summary(out: dict) -> dict:
     return {"kernels": [{
         "name": "glu_ff2", "route": "cuda", "source": "tone_tpu_torch/csrc/glu_ff.cu",
         "replaces": "tone_tpu/ops/glu_ff.py:60", "launches": serve["glu_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
+        "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]
+                           + (out["bench"]["sweep"]["glu_cases"] if "bench" in out else [])),
         "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
         "bound_by": case["bound_by"], "bound_share": case["bound_share"], "library_ms": None,
         "event_ms": case["event_ms"], "gemm_ms": case["gemm_ms"], "m": main_m,
@@ -2343,7 +2519,15 @@ def kernel_summary(out: dict) -> dict:
             "launches": out["recipes"]["bf16_deploy"]["glu_launches"],
             "cases": out["recipes"]["bf16_deploy"]["glu_cases"]},
             "finetuned_launches": out["recipes"]["finetune"]["glu_launches"]}
-           if "recipes" in out else {})}, {
+           if "recipes" in out else {}),
+        **({"bench": {
+            "sweep_launches": out["bench"]["sweep"]["glu_launches"],
+            "sweep_batches": [r["batch"] for r in out["bench"]["sweep"]["rows"] if "rtfx" in r],
+            "tick_launches": out["bench"]["tick"]["glu_launches"],
+            "tick_slots": TICK_SLOTS, "ticks": TICK_TICKS + 1,
+            "step_m": [{"m": c["m"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys}}
+                       for c in out["bench"]["sweep"]["glu_cases"]]}}
+           if "bench" in out else {})}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",

@@ -24,8 +24,11 @@ from tone_tpu_torch.ops.glu_ff import PLAN_HEADER, kernel_constants, plan_glu_ff
 C = kernel_constants()
 H100_SMS = 132
 # 8448: no split at F = 1536; 16640 and 33280: the bulk full-sequence forward
-# of 16 utterances of 60 s (16 x 1040 reduced and 16 x 2080 full-rate rows)
-MS = (1, 10, 37, 80, 160, 320, 640, 1280, 2560, 8448, 16640, 33280)
+# of 16 utterances of 60 s (16 x 1040 reduced and 16 x 2080 full-rate rows);
+# 5120, 6400, 10240 and 12800: the streaming step at B = 512 ... 1280 and the
+# 1,024-slot tick (5 B reduced and 10 B full-rate rows)
+MS = (1, 10, 37, 80, 160, 320, 640, 1280, 2560, 5120, 6400, 8448, 10240, 12800, 16640,
+      33280)
 WIDTHS = ((1536, 384), (128, 64), (256, 128))  # (F, D): the main path's, then the tiny tests'
 SMEM_PER_BLOCK = 232448  # the most dynamic shared memory an H100 block may use
 
@@ -103,6 +106,19 @@ def test_bulk_forward_plans():
         plan = plan_glu_ff(m, 1536, 384, H100_SMS)
         assert plan.big and (plan.row_tiles, plan.col_tiles, plan.split) == (row_tiles, 3, 1)
         assert plan.grid == (row_tiles * 3, 1) and m % plan.bm == 0
+
+
+def test_step_sweep_plans():
+    """The step at the bench's batch sizes (B = 128, 512, 1024, 1280: M = 10·B
+    full-rate and 5·B reduced rows) and the 1,024-slot tick: the big tile,
+    whole 64-row tiles, a depth split only while the tiles fill fewer than
+    the SMs."""
+    got = {m: (plan_glu_ff(m, 1536, 384, H100_SMS).grid, plan_glu_ff(m, 1536, 384, H100_SMS).bm)
+           for m in (640, 1280, 2560, 5120, 6400, 10240, 12800)}
+    assert got == {640: ((60, 4), 32), 1280: ((60, 4), 64), 2560: ((120, 2), 64),
+                   5120: ((240, 1), 64), 6400: ((300, 1), 64), 10240: ((480, 1), 64),
+                   12800: ((600, 1), 64)}
+    assert all(m % bm == 0 for m, (_, bm) in got.items())
 
 
 def test_planner_reads_the_kernel_header():

@@ -39,10 +39,12 @@ def _case(device, m, f=F, d=D, seed=0):
 # The step's and the serving path's row counts (the small tile below 1024
 # rows, the big one from there, depth splits 2-8), ragged tails, 8448 rows
 # (one block per output tile: no split), the bulk full-sequence forward's
-# 16 x 2080 and 16 x 1040 rows, and the tiny widths of the CPU tests (D = 64
-# is one ragged column tile).
+# 16 x 2080 and 16 x 1040 rows, the step at B = 512 ... 1280 and the
+# 1,024-slot tick (10 B full-rate and 5 B reduced rows: 5,120 to 12,800), and
+# the tiny widths of the CPU tests (D = 64 is one ragged column tile).
 @pytest.mark.parametrize("f, d", [(F, D), (128, 64), (256, 128)])
-@pytest.mark.parametrize("m", [33280, 16640, 8448, 2560, 1280, 640, 320, 160, 80, 37, 10, 1])
+@pytest.mark.parametrize("m", [33280, 16640, 12800, 10240, 8448, 6400, 5120, 2560, 1280, 640,
+                               320, 160, 80, 37, 10, 1])
 def test_kernel_matches_plain(cuda, m, f, d):
     av, p2 = _case(cuda, m, f=f, d=d, seed=m)
     before = glu_ff2.launches
@@ -918,3 +920,35 @@ def test_device_beam_agrees_with_host_beam_on_trained_model_on_card(tiny_trained
     cfg, _, state, _, _ = tiny_trained
     agree, dev_out, host_out = host_agreement(cfg, trained_variables(state), device="cuda")
     assert agree >= 0.95, (agree, list(zip(dev_out, host_out)))
+
+
+def test_tick_at_256_slots_launches_b1_32_times_per_tick(cuda):
+    """The tick bench's engine at full width and 256 slots: every tick (the
+    warmup tick too) launches the GLU kernel once per feed-forward."""
+    from tone_tpu_torch.dev.tick_bench import bench
+
+    before = glu_ff2.launches
+    report = bench(slots=256, ticks=5, device="cuda")
+    assert glu_ff2.launches - before == 32 * (5 + 1)
+    assert report["slots"] == 256 and report["tick_ms_p50"] > 0
+    assert report["state_bytes_per_slot"] > 0 and report["power_limit"].endswith("W")
+
+
+def test_bench_prints_one_json_line_naming_the_card(cuda):
+    """``python -m tone_tpu_torch.bench``: the sweep, then one JSON line
+    with the JAX bench's keys and the card's name and power limit."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-m", "tone_tpu_torch.bench"],
+                          cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, proc.stdout
+    line = json.loads(lines[0])
+    assert {"metric", "value", "unit", "vs_baseline"} <= set(line)
+    assert line["device"] == torch.cuda.get_device_name(0) and line["power_limit"].endswith("W")
+    assert line["value"] > 0

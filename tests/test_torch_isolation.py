@@ -47,7 +47,9 @@ def test_no_jax_or_tone_tpu_import(path):
     "tone_tpu_torch.examples.domain_adapt", "tone_tpu_torch.examples.stream_client",
     "tone_tpu_torch.dev", "tone_tpu_torch.dev.beam_quality_sweep",
     "tone_tpu_torch.dev.hotword_quality", "tone_tpu_torch.dev.device_lm_scale",
-    "tone_tpu_torch.dev.debug_sequence", "tone_tpu_torch.core.jax_random"])
+    "tone_tpu_torch.dev.debug_sequence", "tone_tpu_torch.core.jax_random",
+    "tone_tpu_torch.bench", "tone_tpu_torch.dev.tick_bench", "tone_tpu_torch.dev.load_test",
+    "tone_tpu_torch.dev.train_bench", "tone_tpu_torch.dev.align_bench"])
 def test_import_leaves_jax_out_of_sys_modules(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "

@@ -6,13 +6,17 @@
 * :func:`step_stats` — steady-state latency and throughput of the streaming
   step at a given stream count, by the two-point slope (the time of a chain
   of n2 steps less that of n1, over n2 - n1), which cancels the fixed cost
-  of starting and synchronizing a chain.
+  of starting and synchronizing a chain;
+* :func:`device_label` — the card a measurement ran on, as ``nvidia-smi``
+  names it with its power limit, for every result line of the measurement
+  tools (``bench.py``, ``dev/*_bench.py``, ``dev/load_test.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import tempfile
 import time
 from dataclasses import dataclass
@@ -71,3 +75,22 @@ def step_stats(model, batch: int, steps: tuple[int, int] = (20, 120)) -> StepSta
     chunk_s = cfg.audio_chunk_samples / cfg.frontend.sample_rate
     return StepStats(batch=batch, seconds_per_step=sec,
                      rtfx=batch * chunk_s / sec, chunk_latency_ms=sec * 1000)
+
+
+def device_label(device: torch.device | str) -> dict:
+    """``{"device": name, "power_limit": "700.00 W"}`` of a CUDA device, from
+    ``nvidia-smi --query-gpu=name,power.limit`` (a card below its maximum
+    power runs slower under load), or ``{"device": "cpu", "power_limit":
+    None}``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"device": device.type, "power_limit": None}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
+    except FileNotFoundError:
+        return {"device": torch.cuda.get_device_name(index), "power_limit": None}
+    name, limit = (x.strip() for x in out.stdout.strip().splitlines()[0].rsplit(",", 1))
+    return {"device": name, "power_limit": limit}

@@ -334,7 +334,9 @@ class Trainer:
         return slice(self.mesh.data_rank * per, (self.mesh.data_rank + 1) * per)
 
     def _batch(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        arrays = [torch.as_tensor(np.asarray(batch[k]))
+        # tensors may already be staged on the device
+        arrays = [batch[k] if isinstance(batch[k], torch.Tensor)
+                  else torch.as_tensor(np.asarray(batch[k]))
                   for k in ("input_values", "input_lengths", "labels")]
         rows = self._rows(arrays[0].shape[0])
         return tuple(a[rows].to(self.device) for a in arrays)
