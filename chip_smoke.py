@@ -60,9 +60,10 @@ prints one JSON line per phase:
             fused into the search (``fusion=True``): as a ``DeviceLM``
             (``fused``), as the probing binary's own tables
             (``fused_probing``) and with hotwords (``fused_hotwords``); ms
-            and device ms per call, launches per frame, idle share at every
-            bucket (the fused variants at 64 … 512, and also at 1024 and
-            2048 with ``--profile-check``); the LM-free, LM and hotword
+            per call at every bucket (the fused variants at 64 … 512, and
+            also at 1024 and 2048 with ``--profile-check``), device ms,
+            launches per frame and idle share up to 512 frames (at every
+            bucket with ``--profile-check``); the LM-free, LM and hotword
             variants held against the same decoder on the CPU at 64 … 512
             (at every bucket with ``--profile-check``), the fused ones at 64,
             128 and 256 (equal top texts, best scores within 1e-3); with
@@ -171,11 +172,31 @@ prints one JSON line per phase:
             websocket load test against spawned ``serve --device cuda --slots
             64`` processes (real-time and firehose rounds at 16 and 64 streams,
             a round with n-best 4 and 8 hotword streams on a device-beam
-            server, a 15 s soak whose RSS must stay flat, and SIGTERM under 64
+            server, an 8 s soak whose RSS must stay flat, and SIGTERM under 64
             live streams: every stream flushed and closed with 4503); the train
-            bench (B = 16 clips of 10 s, without and with ``remat="full"``: step
-            ms, audio s per s, peak memory); the align bench with ``--kernel``
-            (device and host words equal).
+            bench (B = 16 clips of 10 s, without and with ``remat="full"``, chains
+            of 4 and 12 steps: step ms, audio s per s, peak memory); the align
+            bench with ``--kernel``
+            (device and host words equal);
+18. deploy  the serving image's path without docker (``Dockerfile.torch``
+            read for its ENTRYPOINT, ENV, USER and prebuild line): the
+            wheel built from a copy of its inputs (``pip wheel --no-deps``)
+            and installed with ``pip install --target``, read-only; the
+            seed-0 weights saved as a checkpoint directory; an in-process
+            ``MultiStreamEngine`` of the ENTRYPOINT's flags (its slots) gives
+            9 speech-like streams' finals, B1 launched 32 times per tick;
+            the ENTRYPOINT's console script run from the installed copy (no
+            repo on the path), as uid 65534 where the phase runs as root,
+            cold (no compile cache, an empty ``$XDG_CACHE_HOME``: B1 built
+            from the wheel's sources into the user's cache, under this
+            checkout's name) and warm (the prebuild line's cache, no nvcc
+            reachable, nothing built): ready on ``/v2/health/ready``; 8
+            streams end with their end-of-stream frame, a ninth is still open
+            at the SIGINT (the image's STOPSIGNAL, sent once the server has
+            taken in every frame); every stream's finals equal to the
+            engine's, the 8 closed with 1000, the drained one with 4503,
+            exit 0, nothing under the installed tree changed; wheel, install,
+            prebuild, ready and drain seconds.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line needs the kernels, serve, fused_kernels, fused_step and bulk
@@ -188,6 +209,7 @@ package beside this script, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
 import os
@@ -711,6 +733,9 @@ CPU_BUCKETS = (64, 128, 256, 512)
 # --profile-check, so that the default run, bulk phase included, stays
 # within 900 s on a slow host.
 FUSED_DEFAULT_BUCKETS = (64, 128, 256, 512)
+# Calls above this many frames are timed but not profiled (their hundreds of
+# thousands of events cost more than the calls), unless --profile-check.
+BEAM_PROFILED_MAX = 512
 # key_averages() builds a Python object per event, which takes minutes for the
 # ~10^6 launches of a fused call at 2048 frames: above this many events only
 # the raw events are summed.
@@ -833,11 +858,12 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
             t0 = time.perf_counter()
             got = card.forward_batch_nbest(lps, BEAM_NBEST)
             ms = (time.perf_counter() - t0) * 1e3
-            prof = _device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST),
-                                        profile_check)
-            case = {"variant": variant, "frames": t_pad, "rows": BEAM_ROWS, "ms": ms, **prof,
-                    "launches_per_frame": prof["launches"] / t_pad,
-                    "device_idle_share": 1.0 - prof["device_ms"] / ms}
+            case = {"variant": variant, "frames": t_pad, "rows": BEAM_ROWS, "ms": ms}
+            if profile_check or t_pad <= BEAM_PROFILED_MAX:
+                prof = _device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST),
+                                       profile_check)
+                case.update(prof, launches_per_frame=prof["launches"] / t_pad,
+                            device_idle_share=1.0 - prof["device_ms"] / ms)
             if profile_check and not fusion:
                 # the same call profiled again: how far the count moves
                 again = _device_profile(lambda: card.forward_batch_nbest(lps, BEAM_NBEST))
@@ -897,7 +923,8 @@ def phase_beam_decode(profile_check: bool = False) -> dict:
             "fused_vs_host_beam_top1_agreement": host_agree,
             "ms": "host clock around one call (ends with the n-best read back); "
                   "device_ms and launches summed over torch.profiler's raw events of "
-                  "one more call; *_key_averages: the same profile through "
+                  "one more call (of at most BEAM_PROFILED_MAX frames without "
+                  "--profile-check); *_key_averages: the same profile through "
                   "key_averages(), where it has at most KEY_AVERAGES_MAX_EVENTS "
                   "events; *_again: a second profiled call (LM-free, LM, hotwords); "
                   "both with --profile-check only",
@@ -2334,9 +2361,9 @@ TICK_TICKS = 30               # tick_bench's default
 LOAD_SLOTS = 64
 LOAD_STREAMS = (16, 64)       # dev/load_test.py's default rounds
 LOAD_SECONDS = 6.0            # its default utterance
-LOAD_SOAK_SECONDS = 15.0
+LOAD_SOAK_SECONDS = 8.0
 LOAD_NBEST, LOAD_HOTWORD_STREAMS = 4, 8
-TRAIN_BENCH_STEPS = 8         # train_bench's default: chains of 8 and 24 steps
+TRAIN_BENCH_STEPS = 4         # chains of 4 and 12 steps (train_bench: 8 and 24)
 ALIGN_BENCH_ITERS = 5         # (align_bench: 20)
 
 
@@ -2449,8 +2476,6 @@ async def _bench_load() -> dict:
 def phase_bench() -> dict:
     """The measurement tools of the port on the card, at full width (see
     the module docstring, 17)."""
-    import asyncio
-
     from tone_tpu_torch.config import ToneConfig
     from tone_tpu_torch.core.jax_random import jax_init_model_params
     from tone_tpu_torch.dev import align_bench, train_bench
@@ -2475,9 +2500,425 @@ def phase_bench() -> dict:
     return out
 
 
+DEPLOY_IMAGE = Path(__file__).resolve().parent / "Dockerfile.torch"
+# What the image's build stage copies: the wheel's inputs (never _kernels/).
+DEPLOY_INPUTS = ("pyproject.toml", "README.md", "LICENSE", "tone_tpu", "tone_tpu_torch")
+DEPLOY_STREAMS = 8            # streams that send their end-of-stream frame: closed with 1000
+# and one more that never does: open at the SIGINT, the drain finalizes it
+# as its end-of-stream frame would (its audio whole 300 ms frames) and
+# closes it with 4503 (runtime/server.py CLOSE_SHUTDOWN)
+DEPLOY_HELD = 1
+DEPLOY_PHRASES = (1.5, 2.0)   # seconds of each utterance's two phrases
+DEPLOY_UID = 65534            # the image's unprivileged USER, where the phase runs as root
+DEPLOY_READY_TIMEOUT = 300.0  # s until /v2/health/ready, the warmup and B1's build included
+DEPLOY_CHUNK_BYTES = 2400 * 2  # one 300 ms frame of 8 kHz PCM16
+
+
+def dockerfile_stages(path: Path = DEPLOY_IMAGE) -> list[list[tuple[str, str]]]:
+    """A Dockerfile's instructions by stage: (INSTRUCTION, arguments), with
+    continued lines joined and comments dropped."""
+    stages: list[list[tuple[str, str]]] = []
+    logical = ""
+    for line in path.read_text().splitlines():
+        if not logical and (not line.strip() or line.lstrip().startswith("#")):
+            continue
+        if line.endswith("\\"):
+            logical += line[:-1]
+            continue
+        word, _, rest = (logical + line).strip().partition(" ")
+        logical = ""
+        if word.upper() == "FROM":
+            stages.append([])
+        if stages:
+            stages[-1].append((word.upper(), rest.strip()))
+    return stages
+
+
+def deploy_image(path: Path = DEPLOY_IMAGE) -> dict:
+    """What the deploy phase runs of the serving image: the runtime stage's
+    ENTRYPOINT argv, ENV and USER, and the Python code of the build stage's
+    prebuild line."""
+    import shlex
+
+    stages = dockerfile_stages(path)
+    build, runtime = stages[0], stages[-1]
+    env = dict(arg.split("=", 1) for word, arg in runtime if word == "ENV")
+    (entrypoint,) = [json.loads(arg) for word, arg in runtime if word == "ENTRYPOINT"]
+    (user,) = [arg for word, arg in runtime if word == "USER"]
+    (prebuild,) = [shlex.split(arg) for word, arg in build
+                   if word == "RUN" and "enable_compilation_cache" in arg]
+    if prebuild[1] != "-c" or entrypoint[entrypoint.index("--checkpoint") + 1] != \
+            env["TONE_TPU_MODEL_DIR"]:
+        raise AssertionError(f"{path.name}: unexpected prebuild {prebuild[:2]} or "
+                             f"entrypoint {entrypoint}")
+    return {"entrypoint": entrypoint, "env": env, "user": user, "prebuild": prebuild[2]}
+
+
+def deploy_argv(image: dict, site: Path, model_dir: Path, port: int,
+                metrics_port: int) -> list[str]:
+    """The image's ENTRYPOINT as the deploy phase runs it: the console script
+    installed under ``site``, the model directory in place of the mounted
+    one, local host and free ports."""
+    argv = image["entrypoint"]
+    local = {"--checkpoint": str(model_dir), "--host": "127.0.0.1", "--port": str(port),
+             "--metrics-port": str(metrics_port)}
+    return [str(site / "bin" / argv[0])] + [local.get(flag, arg)
+                                             for flag, arg in zip(argv, argv[1:])]
+
+
+def prebuild_code(image: dict, cache: Path) -> str:
+    """The image's prebuild line, building into ``cache`` in place of the
+    image's compile cache."""
+    return image["prebuild"].replace(image["env"]["TONE_TPU_COMPILE_CACHE"], str(cache))
+
+
+def _http_get(url: str) -> tuple[int, str]:
+    """GET a local URL without any proxy of the environment; (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(url, timeout=2) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+
+
+def _listing(root: Path) -> dict:
+    """Every file and directory under ``root``: mode, size and mtime."""
+    out = {}
+    for path in [root, *root.rglob("*")]:
+        st = path.lstat()
+        out[str(path.relative_to(root))] = (st.st_mode, st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _engine_finals(engine, audios) -> dict:
+    """The finals of ``audios`` through an in-process engine, each fed as the
+    server's handler feeds it (its padding before and after, full chunks,
+    the rest as a last chunk) and ticked until every stream finished; the
+    ticks, B1's launches and the chunks processed."""
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    cfg = engine.config
+    n = cfg.audio_chunk_samples
+    pad = np.zeros(cfg.padding, np.int16)
+    sids = []
+    for audio in audios:
+        sid = engine.open_stream()
+        data = np.concatenate([pad, audio, pad])
+        full = len(data) // n * n
+        for i in range(0, full, n):
+            engine.feed(sid, data[i:i + n])
+        engine.feed(sid, data[full:])
+        engine.close_stream(sid)
+        sids.append(sid)
+    glu_ff2.launches = 0
+    ticks0, chunks0 = engine.stats.ticks, engine.stats.chunks_processed
+    futures = {sid: [] for sid in sids}
+    done: set[int] = set()
+    while len(done) < len(sids):
+        for sid, futs in engine.tick().items():
+            futures[sid].extend(futs)
+        done.update(engine.pop_finished())
+        if engine.stats.ticks - ticks0 > 200:
+            raise AssertionError("the reference streams did not finish within 200 ticks")
+    finals = [[[p.text, p.start_time, p.end_time] for p in (f.result(timeout=600)
+                                                            for f in futures[sid])]
+              for sid in sids]
+    return {"finals": json.loads(json.dumps(finals)), "ticks": engine.stats.ticks - ticks0,
+            "glu_launches": glu_ff2.launches,
+            "chunks": engine.stats.chunks_processed - chunks0}
+
+
+async def _stream(url: str, audio: np.ndarray, eos: bool) -> dict:
+    """One client: the audio as fast as it goes, the end-of-stream frame
+    where ``eos``, then every transcript until the server closes the
+    socket."""
+    import websockets
+
+    pcm = audio.astype("<i2").tobytes()
+    finals = []
+    async with websockets.connect(url, max_size=2**22) as ws:
+        ready = json.loads(await ws.recv())
+        if ready.get("event") != "ready":
+            raise AssertionError(f"expected the ready event, got {ready}")
+        for i in range(0, len(pcm), DEPLOY_CHUNK_BYTES):
+            await ws.send(pcm[i:i + DEPLOY_CHUNK_BYTES])
+        if eos:
+            await ws.send(b"")
+        try:
+            while True:
+                msg = json.loads(await asyncio.wait_for(ws.recv(), timeout=120))
+                if msg.get("event") == "transcript":
+                    finals.append([msg["text"], msg["start_time"], msg["end_time"]])
+        except websockets.ConnectionClosed as e:
+            return {"finals": finals, "close_code": e.rcvd.code if e.rcvd else None}
+
+
+def _chunks_processed(metrics_port: int) -> int:
+    status, body = _http_get(f"http://127.0.0.1:{metrics_port}/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    (line,) = [ln for ln in body.splitlines() if ln.startswith("tone_chunks_processed_total ")]
+    return int(line.split()[1])
+
+
+async def _serve_and_drain(proc, port: int, metrics_port: int, audios, chunks: int) -> dict:
+    """The streams against a ready server, the last ``DEPLOY_HELD`` without
+    their end-of-stream frame; SIGINT (the image's STOPSIGNAL) once the
+    server has processed ``chunks`` of them (every frame taken in, so the
+    drain cuts none short); every stream's finals and close code, the
+    streams still open at the signal, the drain seconds and the exit code."""
+    import signal
+
+    base = _chunks_processed(metrics_port)
+    url = f"ws://127.0.0.1:{port}/api/ws"
+    tasks = [asyncio.create_task(_stream(url, a, i < len(audios) - DEPLOY_HELD))
+             for i, a in enumerate(audios)]
+    deadline = time.perf_counter() + 120
+    while await asyncio.to_thread(_chunks_processed, metrics_port) < base + chunks:
+        if time.perf_counter() > deadline or any(t.done() and t.exception() for t in tasks):
+            for t in tasks:
+                t.cancel()
+            raise AssertionError(f"the server processed {_chunks_processed(metrics_port) - base}"
+                                 f" of {chunks} chunks")
+        await asyncio.sleep(0.02)
+    open_at_signal = sum(not t.done() for t in tasks)
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGINT)
+    streams = await asyncio.gather(*tasks)
+    rc = await asyncio.to_thread(proc.wait, 60)
+    return {"streams": streams, "open_at_signal": open_at_signal,
+            "drain_s": time.perf_counter() - t0, "exit_code": rc}
+
+
+def _run_server(argv, env, cwd: Path, log: Path, user: dict, audios, chunks: int) -> dict:
+    """Start the server, wait for /v2/health/ready, drive the streams, SIGINT
+    it; the child is killed in any case."""
+    from tone_tpu_torch.dev.load_test import _tail
+
+    port, metrics_port = int(argv[argv.index("--port") + 1]), int(
+        argv[argv.index("--metrics-port") + 1])
+    t0 = time.perf_counter()
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                **user)
+    try:
+        while _ready_status(metrics_port) != 200:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited with {proc.returncode} before it was "
+                                     f"ready; its output ends:\n{_tail(log)}")
+            if time.perf_counter() - t0 > DEPLOY_READY_TIMEOUT:
+                raise AssertionError(f"the server was not ready in {DEPLOY_READY_TIMEOUT} s; "
+                                     f"its output ends:\n{_tail(log)}")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        run = asyncio.run(_serve_and_drain(proc, port, metrics_port, audios, chunks))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    codes = [1000] * (len(audios) - DEPLOY_HELD) + [4503] * DEPLOY_HELD
+    if run["exit_code"] != 0 or [s["close_code"] for s in run["streams"]] != codes:
+        raise AssertionError(f"drain: exit {run['exit_code']}, close codes "
+                             f"{[s['close_code'] for s in run['streams']]}; the server's "
+                             f"output ends:\n{_tail(log)}")
+    return {"ready_s": ready_s, **run}
+
+
+def _ready_status(metrics_port: int) -> int | None:
+    try:
+        return _http_get(f"http://127.0.0.1:{metrics_port}/v2/health/ready")[0]
+    except OSError:
+        return None
+
+
+def phase_deploy() -> dict:
+    """The serving image's path without docker (see the module docstring, 18)."""
+    import torch
+
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+
+    cfg = ToneConfig()
+    return deploy_cell(init_model_params(torch.Generator().manual_seed(0), cfg), cfg)
+
+
+def deploy_cell(variables, cfg, serve_args=()) -> dict:
+    """Build the wheel from a copy of its inputs, install it read-only, save
+    the checkpoint, run the image's ENTRYPOINT from the installed copy as its
+    unprivileged user, cold (B1 built from the wheel's sources into the
+    user's cache) and warm (the image's prebuilt cache, no nvcc reachable),
+    each against an in-process engine's finals."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tone_tpu_torch import checkpoint
+    from tone_tpu_torch.__main__ import build_engine, build_parser
+    from tone_tpu_torch.audio.examples import synthesize_speech_like
+    from tone_tpu_torch.dev.load_test import _free_port
+    from tone_tpu_torch.ops import _build
+
+    image = deploy_image()
+    root = Path(tempfile.mkdtemp(prefix="tone_deploy_"))
+    root.chmod(0o755)
+    out: dict = {"phase": "deploy", "nvidia_smi": nvidia_smi(), "image": DEPLOY_IMAGE.name}
+    try:
+        if os.geteuid() == 0:
+            # the image's USER: the server runs unprivileged, over trees it can read
+            uid, user = DEPLOY_UID, {"user": DEPLOY_UID, "group": DEPLOY_UID, "extra_groups": []}
+            blocked = [p for p in root.parents if not p.stat().st_mode & 0o001]
+            if blocked:
+                raise AssertionError(f"uid {uid} cannot reach {root} through {blocked[0]} "
+                                     "(set TMPDIR to a directory others can search)")
+        else:
+            uid, user = os.geteuid(), {}
+        out["server_uid"] = uid
+        out["server_user"] = "uid 65534 (dropped from root)" if user else "the caller"
+
+        def owned(name: str) -> Path:  # a directory the server's user may write
+            path = root / name
+            path.mkdir()
+            if user:
+                os.chown(path, uid, uid)
+            return path
+
+        src, cwd = root / "src", owned("cwd")
+        src.mkdir()
+        repo = DEPLOY_IMAGE.parent
+        for name in DEPLOY_INPUTS:
+            if (repo / name).is_dir():
+                shutil.copytree(repo / name, src / name, ignore=shutil.ignore_patterns(
+                    "_kernels", "__pycache__", "*.so", "*.pyc"))
+            else:
+                shutil.copy2(repo / name, src / name)
+        pip = [sys.executable, "-m", "pip", "--disable-pip-version-check", "--no-cache-dir"]
+        t0 = time.perf_counter()
+        subprocess.run([*pip, "wheel", "--no-deps", "--no-build-isolation", "--no-index",
+                        "-w", str(root / "dist"), str(src)], check=True, capture_output=True)
+        out["wheel_s"] = time.perf_counter() - t0
+        (wheel,) = (root / "dist").glob("*.whl")
+        out["wheel"], out["wheel_bytes"] = wheel.name, wheel.stat().st_size
+        site = root / "site"
+        t0 = time.perf_counter()
+        subprocess.run([*pip, "install", "--no-deps", "--no-index", "--no-warn-script-location",
+                        "--target", str(site), str(wheel)], check=True, capture_output=True)
+        out["install_s"] = time.perf_counter() - t0
+        subprocess.run(["chmod", "-R", "a-w", str(site)], check=True)
+        before = _listing(site)
+        out["site_files"] = len(before)
+
+        model_dir = root / "model"
+        checkpoint.save_checkpoint(model_dir, variables, cfg)
+        audios = [synthesize_speech_like(seed, DEPLOY_PHRASES)
+                  for seed in range(DEPLOY_STREAMS + DEPLOY_HELD)]
+        frame = cfg.audio_chunk_samples
+        audios[-DEPLOY_HELD:] = [a[:len(a) // frame * frame] for a in audios[-DEPLOY_HELD:]]
+        out["audio_s"] = sum(len(a) for a in audios) / cfg.frontend.sample_rate
+
+        # the reference: the same argv's engine in this process, on the same card
+        argv = deploy_argv(image, site, model_dir, _free_port(), _free_port()) + list(serve_args)
+        t0 = time.perf_counter()
+        engine = build_engine(build_parser().parse_args(argv[1:]))
+        try:
+            engine.warmup()
+            ref = _engine_finals(engine, audios)
+        finally:
+            engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+        check_deploy_launches(ref, cfg)
+        if not all(ref["finals"]):
+            raise AssertionError(f"a reference stream yielded no final: {ref['finals']}")
+        out["engine"] = {"slots": build_parser().parse_args(argv[1:]).slots,
+                         **{k: ref[k] for k in ("ticks", "glu_launches", "chunks")},
+                         "s": time.perf_counter() - t0}
+
+        base_env = {k: v for k, v in os.environ.items()
+                    if k not in ("PYTHONPATH", "TONE_TPU_COMPILE_CACHE", "XDG_CACHE_HOME")}
+
+        def server_env(xdg: Path, cache: Path | None, nvcc: bool) -> dict:
+            env = {**base_env, "PYTHONPATH": str(site), "HOME": str(owned(f"home-{xdg.name}")),
+                   "TMPDIR": str(owned(f"tmp-{xdg.name}")), "XDG_CACHE_HOME": str(xdg),
+                   "TONE_TPU_MODEL_DIR": str(model_dir)}
+            if cache is not None:
+                env["TONE_TPU_COMPILE_CACHE"] = str(cache)
+            if not nvcc:  # as in the runtime image: no nvcc on PATH, CUDA_HOME leads nowhere
+                env["PATH"] = os.pathsep.join(d for d in env["PATH"].split(os.pathsep)
+                                              if not (Path(d) / "nvcc").exists())
+                env["CUDA_HOME"] = str(root / "no-cuda")
+                env.pop("CUDA_PATH", None)
+                if shutil.which("nvcc", path=env["PATH"]):
+                    raise AssertionError("nvcc is still reachable")
+            return env
+
+        def serve(name: str, env: dict) -> dict:
+            argv = deploy_argv(image, site, model_dir, _free_port(), _free_port())
+            run = _run_server(argv + list(serve_args), env, cwd, root / f"{name}.log", user,
+                              # a held stream's last two chunks (the padding after it and
+                              # an empty one) come with the drain
+                              audios, ref["chunks"] - 2 * DEPLOY_HELD)
+            finals = [s["finals"] for s in run.pop("streams")]
+            if finals != ref["finals"]:
+                bad = [i for i, (a, b) in enumerate(zip(finals, ref["finals"])) if a != b]
+                raise AssertionError(f"{name}: streams {bad} differ from the in-process engine: "
+                                     f"{[finals[i] for i in bad]} != "
+                                     f"{[ref['finals'][i] for i in bad]}")
+            return {**run, "streams": len(finals), "phrases": sum(map(len, finals))}
+
+        # cold: nothing built, the package read-only: B1 builds into the user's cache
+        cold_xdg = owned("xdg-cold")
+        out["cold"] = serve("cold", server_env(cold_xdg, None, nvcc=True))
+        built = sorted(p.name for p in (cold_xdg / "tone_tpu_torch" / "kernels").glob("*.so"))
+        out["cold"]["built"] = built
+        check_cold_build(built, _build.library_path("glu_ff").name)
+
+        # warm: the image's prebuild line, then its chown, then no nvcc
+        cache = root / "kernels"
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", prebuild_code(image, cache)], cwd=cwd, check=True,
+                       capture_output=True, env={**base_env, "PYTHONPATH": str(site),
+                                                 "PYTHONDONTWRITEBYTECODE": "1"})
+        out["prebuild_s"] = time.perf_counter() - t0
+        if user:
+            subprocess.run(["chown", "-R", f"{uid}:{uid}", str(cache)], check=True)
+        prebuilt = {k: v for k, v in _listing(cache).items() if k != "."}  # its mtime: probes
+        out["prebuilt"] = sorted(p.name for p in cache.glob("*.so"))
+        warm_xdg = owned("xdg-warm")
+        out["warm"] = serve("warm", server_env(warm_xdg, cache, nvcc=False))
+        if {k: v for k, v in _listing(cache).items() if k != "."} != prebuilt or any(
+                warm_xdg.rglob("*.so")):
+            raise AssertionError("the warm server built a library")
+        if _listing(site) != before:
+            changed = sorted(set(_listing(site).items()) ^ set(before.items()))
+            raise AssertionError(f"the installed tree changed: {changed[:10]}")
+        return out
+    finally:
+        subprocess.run(["chmod", "-R", "u+w", str(root)], check=False)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_deploy_launches(ref: dict, cfg) -> None:
+    """B1 launched on every layer's two products on every tick of the
+    reference engine."""
+    if ref["glu_launches"] != 2 * cfg.encoder.n_layers * ref["ticks"]:
+        raise AssertionError(f"{ref['glu_launches']} GLU launches over {ref['ticks']} ticks")
+
+
+def check_cold_build(built: list[str], glu_ff_name: str) -> None:
+    """The cold server built B1, under the name of this checkout's sources,
+    into the user's cache."""
+    if glu_ff_name not in built:
+        raise AssertionError(f"{glu_ff_name} was not built in the user's cache: {built}")
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
-          "recipes", "bench")
+          "recipes", "bench", "deploy")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -2527,7 +2968,11 @@ def kernel_summary(out: dict) -> dict:
             "tick_slots": TICK_SLOTS, "ticks": TICK_TICKS + 1,
             "step_m": [{"m": c["m"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys}}
                        for c in out["bench"]["sweep"]["glu_cases"]]}}
-           if "bench" in out else {})}, {
+           if "bench" in out else {}),
+        **({"deploy_launches": out["deploy"]["engine"]["glu_launches"],
+            "deploy_ticks": out["deploy"]["engine"]["ticks"],
+            "deploy_slots": out["deploy"]["engine"]["slots"]}
+           if "deploy" in out else {})}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",

@@ -2,13 +2,15 @@
 ``tone_tpu/decoding/native/beamsearch.py``).
 
 The shared library is built at first use from the port's own copy of the
-source, ``src/tone_decode.cpp``, with the system ``g++`` into the package's
-build directory (``tone_tpu_torch/_kernels/`` unless redirected, git-ignored;
-``ops/_build.py GxxLibrary``), under a name keyed by the hash of the source
-and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  The entry points raise
-RuntimeError where no toolchain is available; ``BeamSearchCTCDecoder``
-then decodes with the Python search (``decoding/beam.py``).
+source, ``src/tone_decode.cpp``, with the system ``g++`` into the port's
+build directory (``ops/_build.py build_dir``: the package's git-ignored
+``_kernels/`` in a checkout, the user's cache for a read-only install,
+unless redirected), under a name keyed by the hash of the source and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+``build_native()`` returns False where no toolchain or no writable
+directory builds it, and the entry points raise RuntimeError;
+``BeamSearchCTCDecoder`` then decodes with the Python search
+(``decoding/beam.py``).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ _LIBRARY = _build.GxxLibrary(_SRC, _declare)
 
 def library_path() -> Path:
     """Where the library builds to: keyed by the source and the flags, in
-    the build directory (``ops/_build.py BUILD_DIR``)."""
+    the build directory (``ops/_build.py build_dir``)."""
     return _LIBRARY.path()
 
 

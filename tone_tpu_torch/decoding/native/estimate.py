@@ -5,10 +5,11 @@ Corpus file → ARPA file, fully native (tokenize, count, modified-KN
 estimate, prune, write) — the scale path for the pure-Python estimator in
 ``decoding/estimate.py``.  The shared library is built at first use from the
 port's own copy of the source, ``src/tone_estimate.cpp``, with the system
-``g++`` into the build directory (``ops/_build.py GxxLibrary``: the package's
-git-ignored ``_kernels/`` unless redirected), under a name keyed by the hash
-of the source and the flags.  Callers fall back to the Python estimator
-when no toolchain is available.
+``g++`` into the build directory (``ops/_build.py build_dir``: the package's
+git-ignored ``_kernels/`` in a checkout, the user's cache for a read-only
+install, unless redirected), under a name keyed by the hash of the source
+and the flags.  Callers fall back to the Python estimator when no toolchain
+or no writable directory builds it.
 """
 
 from __future__ import annotations

@@ -158,15 +158,12 @@ def enable_compilation_cache(cache_dir: str | Path) -> bool:
 
     An unusable directory (a container may set TONE_TPU_COMPILE_CACHE to a
     root-owned bind mount) must not abort startup — the cache is an
-    optimization, so degrade to a logged warning and build in the default
-    directory.
+    optimization, so degrade to a logged warning and build where
+    ``ops/_build.py build_dir`` chooses.
     """
     cache_dir = Path(cache_dir)
     try:
-        cache_dir.mkdir(parents=True, exist_ok=True)
-        probe = cache_dir / ".tone_tpu_writable"
-        probe.touch()
-        probe.unlink()
+        _build.probe_writable(cache_dir)
     except OSError as e:
         logger.warning("persistent compile cache disabled (%s unusable: %s)", cache_dir, e)
         return False

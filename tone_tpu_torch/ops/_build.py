@@ -3,16 +3,24 @@ and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
-``_kernels/lib<name>-<hash>.so`` inside the package; the hash covers the
+``lib<name>-<hash>.so`` in the build directory; the hash covers the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source or header is rebuilt and a stale library is never loaded.  The compiler's ``-Xptxas -v`` report (registers, shared
-memory, spills) is kept beside the library as ``.log``.
+source or header is rebuilt, a stale library is never loaded, and a
+library built elsewhere from the same sources is found by its name.  The
+compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
+beside the library as ``.log``.
 
 ``GxxLibrary`` builds the port's C++ host sources (the native beam decoder
 and LM estimator under ``decoding/native/src/``) with ``g++`` into the same
-directory, keyed the same way.  ``BUILD_DIR`` may be pointed elsewhere
-before the first build (``export.enable_compilation_cache``), so that a
-container builds each library once.
+directory, keyed the same way.
+
+The build directory (``build_dir()``) is ``BUILD_DIR`` where that was set
+(``export.enable_compilation_cache``, so that a container builds each
+library once); else it is chosen at the first build: the package's
+``_kernels/`` where it can be written (a checkout), else the user's cache,
+``$XDG_CACHE_HOME/tone_tpu_torch/kernels`` (``~/.cache`` without it; an
+installed, read-only copy).  Where neither can be written ``build`` raises,
+naming both, and ``GxxLibrary.build`` returns False.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_kernels"
+BUILD_DIR: Path | None = None  # chosen by build_dir() at the first build unless set
 
 NVCC_FLAGS = (
     "-O3", "-std=c++17",
@@ -54,6 +62,39 @@ def _nvcc() -> str:
                        "machine with the GPU (set CUDA_HOME or put nvcc on PATH)")
 
 
+def probe_writable(directory: Path) -> None:
+    """Create ``directory`` and write a file in it; raises OSError where it
+    cannot (as root, only a read-only mount or a file in the way stops it)."""
+    directory.mkdir(parents=True, exist_ok=True)
+    probe = directory / f".write-probe-{os.getpid()}-{threading.get_ident()}"
+    probe.touch()
+    probe.unlink()
+
+
+def build_dir() -> Path:
+    """The directory the libraries build into: ``BUILD_DIR``, chosen once
+    (see the module docstring) where it was not set.  Raises PermissionError
+    naming the directories tried where none can be written."""
+    global BUILD_DIR
+    if BUILD_DIR is None:
+        cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+        tried = [PACKAGE_DIR / "_kernels", Path(cache) / "tone_tpu_torch" / "kernels"]
+        errors = []
+        for directory in tried:
+            try:
+                probe_writable(directory)
+            except OSError as e:
+                errors.append(f"{directory} ({e.strerror or e})")
+                continue
+            BUILD_DIR = directory
+            break
+        else:
+            raise PermissionError(
+                "no directory to build the port's libraries in: "
+                + "; ".join(errors) + " (set TONE_TPU_COMPILE_CACHE to a writable one)")
+    return BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by the source, every
     ``csrc/*.cuh`` header (any of them may be included) and the flags."""
@@ -61,7 +102,7 @@ def library_path(name: str) -> Path:
     for header in sorted(SOURCE_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -69,7 +110,7 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -94,7 +135,7 @@ def load(name: str) -> ctypes.CDLL:
 def gxx_library_path(source: Path) -> Path:
     """Where the C++ ``source`` builds to: keyed by the source and the flags."""
     digest = hashlib.sha256(source.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 class GxxLibrary:
@@ -114,16 +155,22 @@ class GxxLibrary:
         return gxx_library_path(self.source)
 
     def build(self, force: bool = False) -> bool:
-        """Compile the library if needed.  Returns availability."""
+        """Compile the library if needed.  Returns availability: False where
+        no ``g++`` builds it or no build directory can be written, as the
+        JAX package's ``build_native`` does."""
         with self._lock:
-            out = self.path()
+            try:
+                out = self.path()
+            except OSError:
+                self._failed = True
+                return False
             if out.exists() and not force:
                 return True
             if self._failed and not force:
                 return False
-            out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             try:
+                out.parent.mkdir(parents=True, exist_ok=True)
                 subprocess.run(["g++", *GXX_FLAGS, str(self.source), "-o", str(tmp)],
                                check=True, capture_output=True, timeout=300)
                 os.replace(tmp, out)  # concurrent builds each publish a whole file

@@ -512,3 +512,18 @@ async def serve(engine: MultiStreamEngine, host: str = "0.0.0.0", port: int = 80
             if metrics_server is not None:
                 metrics_server.shutdown()
 
+
+def main() -> None:
+    """Alias of ``python -m tone_tpu_torch serve`` (port of
+    ``tone_tpu/runtime/server.py main``): the flags live in one place,
+    ``tone_tpu_torch/__main__.py``, and this entry point forwards to it
+    verbatim."""
+    import sys
+
+    from tone_tpu_torch.__main__ import main as cli_main
+
+    cli_main(["serve", *sys.argv[1:]])
+
+
+if __name__ == "__main__":
+    main()
