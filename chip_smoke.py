@@ -196,7 +196,19 @@ prints one JSON line per phase:
             taken in every frame); every stream's finals equal to the
             engine's, the 8 closed with 1000, the drained one with 4503,
             exit 0, nothing under the installed tree changed; wheel, install,
-            prebuild, ready and drain seconds.
+            prebuild, ready and drain seconds;
+19. hub     the Hugging Face Hub path against an endpoint on 127.0.0.1
+            (``tone_tpu_torch/dev/local_hub.py``) serving the seed-0
+            model.safetensors and a kenlm.bin of the recipes' bigram LM:
+            ``StreamingCTCPipeline.from_hugging_face()`` on the card, cold
+            (download over loopback and load, s) and, with the endpoint
+            stopped and ``HF_HUB_OFFLINE=1``, warm from the cache (s); over
+            the short example FLAC, both models' step logprobs equal to the
+            bit to ``from_local``'s on the served files, the cold pipeline's
+            texts equal to its, B1 launched 32 times per step; ``python -m
+            tone_tpu_torch download DIR`` in a process of its own (the served
+            bytes); the checkpoint, LM and a VAD file pushed with the port's
+            push_hf, its model.safetensors loading bit-equal.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line needs the kernels, serve, fused_kernels, fused_step and bulk
@@ -2679,11 +2691,12 @@ async def _serve_and_drain(proc, port: int, metrics_port: int, audios, chunks: i
              for i, a in enumerate(audios)]
     deadline = time.perf_counter() + 120
     while await asyncio.to_thread(_chunks_processed, metrics_port) < base + chunks:
-        if time.perf_counter() > deadline or any(t.done() and t.exception() for t in tasks):
+        failed = [repr(t.exception()) for t in tasks if t.done() and t.exception()]
+        if time.perf_counter() > deadline or failed:
             for t in tasks:
                 t.cancel()
             raise AssertionError(f"the server processed {_chunks_processed(metrics_port) - base}"
-                                 f" of {chunks} chunks")
+                                 f" of {chunks} chunks; streams failed: {failed}")
         await asyncio.sleep(0.02)
     open_at_signal = sum(not t.done() for t in tasks)
     t0 = time.perf_counter()
@@ -2715,7 +2728,10 @@ def _run_server(argv, env, cwd: Path, log: Path, user: dict, audios, chunks: int
                                      f"its output ends:\n{_tail(log)}")
             time.sleep(0.2)
         ready_s = time.perf_counter() - t0
-        run = asyncio.run(_serve_and_drain(proc, port, metrics_port, audios, chunks))
+        try:
+            run = asyncio.run(_serve_and_drain(proc, port, metrics_port, audios, chunks))
+        except AssertionError as e:
+            raise AssertionError(f"{e}; the server's output ends:\n{_tail(log)}") from None
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -2916,9 +2932,187 @@ def check_cold_build(built: list[str], glu_ff_name: str) -> None:
         raise AssertionError(f"{glu_ff_name} was not built in the user's cache: {built}")
 
 
+# The hub phase: the Hugging Face Hub path through an endpoint on 127.0.0.1
+# (tone_tpu_torch/dev/local_hub.py): nothing leaves the machine.
+HUB_PUSHED = "tone/pushed"
+
+
+def _hub_stream(pipe, audio, *, decode: bool) -> dict:
+    """``audio`` through ``pipe``: ``pipe.forward_offline`` (its phrase
+    texts) where ``decode``, else the model's streaming steps alone (padded
+    as the pipeline pads), with every step's logprobs on the host, B1's
+    launches over the steps and the seconds of the pass."""
+    import torch
+
+    from tone_tpu_torch.ops.glu_ff import glu_ff2
+
+    model, logprobs = pipe.model, []
+    step = model.forward_native
+
+    def recorded(chunk, state):
+        lp, state = step(chunk, state)
+        logprobs.append(lp.cpu())
+        return lp, state
+
+    model.forward_native = recorded
+    glu_ff2.launches = 0
+    t0 = time.perf_counter()
+    try:
+        texts = None
+        if decode:
+            texts = [p.text for p in pipe.forward_offline(audio)]
+        else:
+            x = np.pad(audio, (pipe.PADDING, pipe.PADDING))
+            x = np.pad(x, (0, -len(x) % pipe.CHUNK_SIZE)).astype(np.int32)
+            state = None
+            for chunk in x.reshape(-1, pipe.CHUNK_SIZE):
+                _, state = model.forward_native(chunk[None], state)
+        torch.cuda.synchronize()
+    finally:
+        del model.forward_native
+    return {"texts": texts, "steps": len(logprobs), "glu_launches": glu_ff2.launches,
+            "stream_s": time.perf_counter() - t0, "logprobs": torch.cat(logprobs)}
+
+
+def phase_hub() -> dict:
+    """``StreamingCTCPipeline.from_hugging_face()`` on the card from a local
+    endpoint serving the seed-0 model.safetensors and a kenlm.bin (the
+    recipes' bigram LM): cold (download over loopback and load) and, with
+    the endpoint stopped and ``HF_HUB_OFFLINE=1``, warm from the cache; over
+    the short example FLAC, both models' step logprobs equal to the bit to
+    ``from_local``'s on the served files, the cold pipeline's texts equal to
+    its, B1 launched 32 times per step; ``python -m tone_tpu_torch download
+    DIR`` (in a process beside the passes); the checkpoint pushed with the
+    port's push_hf, its model.safetensors loading bit-equal."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from tone_tpu_torch.audio import read_example_audio
+    from tone_tpu_torch.bridge import tree_leaves
+    from tone_tpu_torch.checkpoint import load_torch_checkpoint, save_checkpoint
+    from tone_tpu_torch.config import ToneConfig
+    from tone_tpu_torch.core.model import init_model_params
+    from tone_tpu_torch.decoder import BeamSearchCTCDecoder
+    from tone_tpu_torch.decoding.kenlm_binary import write_kenlm_binary
+    from tone_tpu_torch.decoding.native.beamsearch import build_native
+    from tone_tpu_torch.dev import push_hf
+    from tone_tpu_torch.dev.beam_quality_sweep import corpus_lm
+    from tone_tpu_torch.dev.local_hub import LocalHub, hub_env
+    from tone_tpu_torch.hub import TONE_REPO
+    from tone_tpu_torch.interop import save_torch_checkpoint
+    from tone_tpu_torch.pipeline import StreamingCTCPipeline
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    audio = read_example_audio()
+    per_step = 2 * cfg.encoder.n_layers
+    out = {"phase": "hub", "nvidia_smi": nvidia_smi(), "config": "ToneConfig() bf16",
+           "audio_s": len(audio) / cfg.frontend.sample_rate}
+    if not build_native():  # built before the clock: the ready times are download and load
+        raise AssertionError("hub: the native beam decoder did not build")
+    runs = {}
+    download = None
+    with tempfile.TemporaryDirectory() as tmp, hub_env():
+        tmp = Path(tmp)
+        save_torch_checkpoint(tmp / "model.safetensors", variables, cfg)
+        write_kenlm_binary(corpus_lm(), tmp / "kenlm.bin")
+        served = {n: (tmp / n).read_bytes() for n in ("model.safetensors", "kenlm.bin")}
+        out["served_bytes"] = {n: len(b) for n, b in served.items()}
+        ref_dir = tmp / "local"
+        ref_dir.mkdir()
+        for name, data in served.items():
+            (ref_dir / name).write_bytes(data)
+        local = LocalHub({TONE_REPO: served}).start()
+        url = local.url   # where the warm start finds nothing
+        try:
+            with hub_env(HF_ENDPOINT=url, HF_HOME=tmp / "hf"):
+                t0 = time.perf_counter()
+                pipe = StreamingCTCPipeline.from_hugging_face()
+                torch.cuda.synchronize()
+                out["cold_ready_s"] = time.perf_counter() - t0
+            if pipe.model.device.type != "cuda" or not isinstance(
+                    pipe.decoder, BeamSearchCTCDecoder) or pipe.decoder._lm is None:
+                raise AssertionError(f"hub: {pipe.model.device} {type(pipe.decoder)}")
+            # the download subcommand into a fresh cache, beside the passes
+            with hub_env(HF_ENDPOINT=url, HF_HOME=tmp / "hf_cli"):
+                download = subprocess.Popen(
+                    [sys.executable, "-m", "tone_tpu_torch", "download", str(tmp / "dl")],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            runs["hub"] = _hub_stream(pipe, audio, decode=True)
+            del pipe
+            runs["from_local"] = _hub_stream(StreamingCTCPipeline.from_local(ref_dir), audio,
+                                             decode=True)
+
+            # the port's push_hf: the checkpoint, the LM and a VAD file
+            save_checkpoint(tmp / "ckpt", variables, cfg)
+            (tmp / "silero_vad.onnx").write_bytes(np.random.default_rng(0).bytes(4096))
+            t0 = time.perf_counter()
+            with hub_env(HF_ENDPOINT=url, HF_TOKEN="chip-smoke"), \
+                    contextlib.redirect_stdout(io.StringIO()) as printed:
+                push_hf.main(["--repo", HUB_PUSHED, "--checkpoint", str(tmp / "ckpt"),
+                              "--lm", str(tmp / "kenlm.bin"),
+                              "--vad", str(tmp / "silero_vad.onnx")])
+            out["push_s"] = time.perf_counter() - t0
+            out["push_printed"] = printed.getvalue().strip()
+            pushed = local.files(HUB_PUSHED)
+            _, stderr = download.communicate(timeout=600)
+            if download.returncode != 0:
+                raise AssertionError(f"hub download exited {download.returncode}: "
+                                     f"{stderr[-3000:]}")
+        finally:
+            local.stop()
+            if download is not None and download.poll() is None:  # a failed check's
+                download.kill()
+                download.wait()
+        got = {p.name: p.read_bytes() for p in (tmp / "dl").iterdir()}
+        if got != served:
+            raise AssertionError(f"hub download: {sorted(got)} differ from the served files")
+        want = {"model.safetensors", "kenlm.bin", "onnx/silero_vad.onnx",
+                "tone_tpu_torch_checkpoint/config.json",
+                "tone_tpu_torch_checkpoint/variables.safetensors"}
+        if set(pushed) != want or pushed["kenlm.bin"] != served["kenlm.bin"]:
+            raise AssertionError(f"hub push: {sorted(pushed)}")
+        (tmp / "pushed.safetensors").write_bytes(pushed["model.safetensors"])
+        loaded = tree_leaves(load_torch_checkpoint(tmp / "pushed.safetensors", cfg))
+        if not all(torch.equal(a, b) for a, b in zip(loaded, tree_leaves(variables),
+                                                     strict=True)):
+            raise AssertionError("hub push: model.safetensors does not load bit-equal")
+        out["pushed"] = {p: len(b) for p, b in sorted(pushed.items())}
+
+        # warm: the endpoint stopped, offline, from the cache
+        with hub_env(HF_ENDPOINT=url, HF_HOME=tmp / "hf", HF_HUB_OFFLINE=1):
+            t0 = time.perf_counter()
+            pipe = StreamingCTCPipeline.from_hugging_face()
+            torch.cuda.synchronize()
+            out["warm_ready_s"] = time.perf_counter() - t0
+        runs["warm"] = _hub_stream(pipe, audio, decode=False)
+        del pipe
+    reference = runs["from_local"]["logprobs"]
+    if reference.shape[1:] != (cfg.encoder.chunk_size, cfg.vocab_size_with_blank) or not bool(
+            torch.isfinite(reference).all()):
+        raise AssertionError(f"hub from_local: logprobs {tuple(reference.shape)}")
+    for name, run in runs.items():
+        if run["glu_launches"] != per_step * run["steps"] or not run["steps"]:
+            raise AssertionError(f"hub {name}: {run['glu_launches']} B1 launches over "
+                                 f"{run['steps']} steps")
+        run["logprobs_bit_equal"] = torch.equal(run.pop("logprobs"), reference)
+        if not run["logprobs_bit_equal"]:
+            raise AssertionError(f"hub {name}: logprobs differ from from_local's")
+        out[name] = run
+    if runs["hub"]["texts"] != runs["from_local"]["texts"]:
+        raise AssertionError(f"hub: texts {runs['hub']['texts']} != from_local's "
+                             f"{runs['from_local']['texts']}")
+    out["glu_launches"] = runs["hub"]["glu_launches"]
+    return out
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
-          "recipes", "bench", "deploy")
+          "recipes", "bench", "deploy", "hub")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -2972,7 +3166,9 @@ def kernel_summary(out: dict) -> dict:
         **({"deploy_launches": out["deploy"]["engine"]["glu_launches"],
             "deploy_ticks": out["deploy"]["engine"]["ticks"],
             "deploy_slots": out["deploy"]["engine"]["slots"]}
-           if "deploy" in out else {})}, {
+           if "deploy" in out else {}),
+        **({"hub_launches": out["hub"]["glu_launches"], "hub_steps": out["hub"]["hub"]["steps"]}
+           if "hub" in out else {})}, {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",

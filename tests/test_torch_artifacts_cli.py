@@ -6,6 +6,7 @@ package: ``StreamingCTCModel.from_local`` on every artifact format,
 
 import asyncio
 import json
+import re
 import sys
 import wave
 from pathlib import Path
@@ -78,11 +79,22 @@ def test_from_local_matches_jax(tmp_path, fmt, dtype):
             torch.testing.assert_close(tlp, dlp, rtol=0, atol=0)
 
 
-def test_from_local_needs_the_network_for_the_hub():
-    with pytest.raises(NotImplementedError, match="network"):
-        StreamingCTCModel.from_hugging_face()
-    with pytest.raises(NotImplementedError, match="network"):
-        StreamingCTCPipeline.download_from_hugging_face("unused")
+def test_from_local_needs_the_network_for_the_hub(tmp_path, monkeypatch):
+    """The Hub entry points fetch through ``$HF_ENDPOINT``: one that cannot
+    be reached, with an empty cache, raises naming the endpoint and the file
+    (tests/test_torch_hub.py holds them to the JAX package's)."""
+    from test_torch_common import dead_endpoint
+
+    from tone_tpu_torch.dev.local_hub import hub_env
+    from tone_tpu_torch.hub import HubError
+
+    dead = dead_endpoint()
+    with hub_env(HF_ENDPOINT=dead, HF_HOME=tmp_path / "hf"):
+        with pytest.raises(HubError, match=re.escape(f"model.onnx at main from {dead}")):
+            StreamingCTCModel.from_hugging_face(device="cpu")
+        with pytest.raises(HubError, match=re.escape(dead)):
+            StreamingCTCPipeline.download_from_hugging_face(tmp_path)
+    assert list(tmp_path.iterdir()) == []   # neither a cache nor a copied file
 
 
 def _corpus(path: Path, seed: int = 0, lines: int = 300) -> Path:

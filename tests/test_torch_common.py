@@ -10,6 +10,8 @@ numpy-made weights and audio go through the JAX package and the port.
 
 from __future__ import annotations
 
+import socket
+
 import jax
 import numpy as np
 import pytest
@@ -108,6 +110,13 @@ def tiny_variables_with_stats(jax_config, torch_config, seed: int = 0):
 def audio(n_samples: int, batch: int | None = None, seed: int = 0) -> np.ndarray:
     shape = (n_samples,) if batch is None else (batch, n_samples)
     return np.random.default_rng(seed).integers(-20000, 20000, shape).astype(np.int32)
+
+
+def dead_endpoint() -> str:
+    """A loopback URL where nothing listens (connections are refused)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"http://127.0.0.1:{s.getsockname()[1]}"
 
 
 DERIVED = ("resolved_state_dtype", "vocab_size", "vocab_size_with_blank", "blank_id",

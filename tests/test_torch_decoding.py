@@ -195,10 +195,11 @@ def test_from_local_reads_every_lm_format(lm_files):
         phrases)
 
 
-def test_fused_lm_and_host_beam_raise(lm_files):
+def test_fused_lm_and_host_beam_raise(lm_files, tmp_path):
     """The fused search and the host beam are ported: ``fusion=True`` and
-    ``build_decoder("beam")`` build them.  The Hugging Face download is not
-    (no network): it raises, naming its ROADMAP item."""
+    ``build_decoder("beam")`` build them.  The host beam's Hub download
+    (kenlm.bin) from an endpoint that cannot be reached, with an empty
+    cache, raises naming the endpoint."""
     from tone_tpu_torch.decoder import BeamSearchCTCDecoder
     from tone_tpu_torch.decoding.device_lm import DeviceLM, DeviceProbingLM
 
@@ -212,8 +213,15 @@ def test_fused_lm_and_host_beam_raise(lm_files):
     assert isinstance(host, BeamSearchCTCDecoder) and host._lm is not None
     phrase = _phrases(5, n=1)[0]
     assert fused.forward(phrase) == dec.forward(phrase)
-    with pytest.raises(NotImplementedError, match="network"):
+    from test_torch_common import dead_endpoint
+
+    from tone_tpu_torch.dev.local_hub import hub_env
+    from tone_tpu_torch.hub import HubError
+
+    dead = dead_endpoint()
+    with hub_env(HF_ENDPOINT=dead, HF_HOME=tmp_path), pytest.raises(HubError) as err:
         BeamSearchCTCDecoder.from_hugging_face()
+    assert dead in str(err.value) and "kenlm.bin" in str(err.value)
 
 
 @pytest.mark.parametrize("kwargs, error", [

@@ -802,6 +802,35 @@ def test_from_local_on_card_is_bit_equal_to_direct(cuda, tmp_path, fmt):
         assert torch.equal(ll, ld)
 
 
+def test_from_hugging_face_on_card_launches_b1_32_times_per_step(cuda, tmp_path):
+    """``from_hugging_face()`` (the full-width default config) from a local
+    endpoint lands on the card, gives the directly built model's logprobs
+    to the bit, and launches B1 twice per layer and step."""
+    from tone_tpu_torch.dev.local_hub import LocalHub, hub_env
+    from tone_tpu_torch.hub import TONE_REPO
+    from tone_tpu_torch.interop import save_torch_checkpoint
+
+    cfg = ToneConfig()
+    variables = init_model_params(torch.Generator().manual_seed(0), cfg)
+    save_torch_checkpoint(tmp_path / "model.safetensors", variables, cfg)
+    with LocalHub({TONE_REPO: {"model.safetensors":
+                               (tmp_path / "model.safetensors").read_bytes()}}) as local, \
+            hub_env(HF_ENDPOINT=local.url, HF_HOME=tmp_path / "hf"):
+        model = StreamingCTCModel.from_hugging_face()
+    assert model.device.type == "cuda" and model.config == cfg
+    direct = StreamingCTCModel(variables, cfg, device=cuda)
+    wav = np.random.default_rng(4).integers(-20000, 20000, (2, 2400 * 3)).astype(np.int32)
+    sm = sd = None
+    for i in range(3):
+        chunk = wav[:, i * 2400:(i + 1) * 2400]
+        before = glu_ff2.launches
+        lm, sm = model.forward_native(chunk, sm)
+        torch.cuda.synchronize()
+        assert glu_ff2.launches == before + 2 * cfg.encoder.n_layers == before + 32
+        ld, sd = direct.forward_native(chunk, sd)
+        assert torch.equal(lm, ld)
+
+
 def test_exported_program_on_card_equals_eager(cuda, tmp_path):
     """The exported bf16 step runs kernel B1 (the registered op's CUDA
     kernel, twice per layer and step; never the plain version) and gives

@@ -506,22 +506,36 @@ def test_cli_subcommands_and_flags_match_jax(monkeypatch):
         assert port_flags[name] - {"--device"} == jax_flags[name], name
 
 
-def test_cli_download_exits_naming_the_network(tmp_path, capsys):
-    from tone_tpu_torch.__main__ import main
+def test_cli_download_exits_naming_the_network(tmp_path):
+    """``download`` creates DIR first, as the JAX CLI does; from an endpoint
+    that cannot be reached, with an empty cache, it exits non-zero with the
+    client's message, which names the endpoint."""
+    from test_torch_common import dead_endpoint
 
-    with pytest.raises(SystemExit) as exit_info:
+    from tone_tpu_torch.__main__ import main
+    from tone_tpu_torch.dev.local_hub import hub_env
+
+    dead = dead_endpoint()
+    with hub_env(HF_ENDPOINT=dead, HF_HOME=tmp_path / "hf"), \
+            pytest.raises(SystemExit) as exit_info:
         main(["download", str(tmp_path / "artifacts"), "--only-acoustic"])
-    assert exit_info.value.code != 0 and "needs the network" in str(exit_info.value.code)
-    assert not (tmp_path / "artifacts").exists()
+    message = str(exit_info.value.code)
+    assert message.startswith("download: ") and dead in message and "model.onnx" in message
+    assert list((tmp_path / "artifacts").iterdir()) == []
+
+
+# the port's one renamed flag: it uploads the export subcommand's programs, not StableHLO
+RENAMED_FLAGS = {"dev.push_hf": {(("--stablehlo",), "stablehlo"): (("--exported",), "exported")}}
 
 
 @pytest.mark.parametrize("name", ["examples.finetune", "examples.domain_adapt",
                                   "examples.stream_client", "dev.beam_quality_sweep",
                                   "dev.hotword_quality", "dev.device_lm_scale",
-                                  "dev.debug_sequence"])
+                                  "dev.debug_sequence", "dev.push_hf"])
 def test_script_flags_and_defaults_match_jax(name, monkeypatch):
-    """Each script takes the JAX script's flags with their defaults, and
-    ``--device`` (but for the client, which runs no model)."""
+    """Each script takes the JAX script's flags with their defaults (under
+    the port's name where ``RENAMED_FLAGS`` gives one), and ``--device``
+    (but for the client and push_hf, which run no model)."""
     import argparse as ap
     import importlib
 
@@ -541,5 +555,8 @@ def test_script_flags_and_defaults_match_jax(name, monkeypatch):
     monkeypatch.setattr(ap.ArgumentParser, "parse_args", stop)
     jax_flags = flags(importlib.import_module(name.split(".")[1]).main)
     port_flags = flags(importlib.import_module(f"tone_tpu_torch.{name}").main)
-    device = {(("--device",), "device"): None} if name != "examples.stream_client" else {}
+    renamed = RENAMED_FLAGS.get(name, {})
+    jax_flags = {renamed.get(flag, flag): default for flag, default in jax_flags.items()}
+    no_model = name in ("examples.stream_client", "dev.push_hf")
+    device = {} if no_model else {(("--device",), "device"): None}
     assert port_flags == {**jax_flags, **device}

@@ -22,8 +22,9 @@ model in the JAX CLI.  Without one the model takes random weights from
 kernels build into.  ``--data-parallel`` splits the bulk batch rows
 (``transcribe``/``eval`` with ``--batch-size``) or the serving slots
 (``serve``) over every GPU, one process driving them all
-(``parallel/mesh.py``).  ``download`` needs the network, which the port's
-machines do not have: it exits non-zero, naming it.
+(``parallel/mesh.py``).  ``download`` fetches the released model and LM of
+``t-tech/T-one`` from ``$HF_ENDPOINT`` through the Hub cache (``hub.py``)
+into DIR; where it cannot, it exits non-zero with the client's message.
 Everything runs on the GPU; ``--device cpu`` asks for the CPU.
 """
 
@@ -81,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="tone_tpu_torch",
                                      description="streaming ASR on PyTorch/CUDA")
     sub = parser.add_subparsers(dest="command", required=True)
-    p_dl = sub.add_parser("download", help="download artifacts from HF Hub (needs the network)")
+    p_dl = sub.add_parser("download", help="download artifacts from HF Hub")
     p_dl.add_argument("download_dir", type=Path)
     p_dl.add_argument("--only-acoustic", action="store_true")
 
@@ -544,12 +545,14 @@ def _run_export(args) -> None:
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.command == "download":
+        from tone_tpu_torch.hub import HubError
         from tone_tpu_torch.pipeline import StreamingCTCPipeline
 
+        args.download_dir.mkdir(exist_ok=True)
         try:
             StreamingCTCPipeline.download_from_hugging_face(
                 args.download_dir, only_acoustic=args.only_acoustic)
-        except NotImplementedError as e:
+        except HubError as e:
             raise SystemExit(f"download: {e}") from None
     elif args.command == "serve":
         import asyncio

@@ -13,7 +13,9 @@ Two call paths:
 
 ``from_local`` loads the port's checkpoint directory, a reference torch
 checkpoint (``.safetensors``, ``.bin``/``.pt``), the reference's
-``model.onnx`` or a ``.nemo`` archive; ``from_hugging_face`` needs the network and raises.  A model
+``model.onnx`` or a ``.nemo`` archive; ``from_hugging_face`` fetches
+``model.safetensors`` (else ``model.onnx``) of ``t-tech/T-one`` through the
+port's Hub client (``hub.py``: ``$HF_ENDPOINT``, the Hub cache).  A model
 also builds from ``bridge.from_jax_variables`` or
 ``core.model.init_model_params``.
 """
@@ -142,17 +144,21 @@ class StreamingCTCModel:
         return cls(load_torch_checkpoint(path, config), config, device=device)
 
     @classmethod
-    def from_hugging_face(cls) -> "StreamingCTCModel":
-        return cls.from_local(cls.download_from_hugging_face())
+    def from_hugging_face(cls, device: str | torch.device | None = None) -> "StreamingCTCModel":
+        """The Hub's model on ``device`` (``cuda`` unless the caller asks for
+        the CPU)."""
+        return cls.from_local(cls.download_from_hugging_face(), device=device)
 
     @classmethod
     def download_from_hugging_face(cls) -> str:
-        """Not available: the download needs the network, which the port's
-        machines do not have; load the files with ``from_local``."""
-        raise NotImplementedError(
-            "StreamingCTCModel.download_from_hugging_face needs the network "
-            "(Hugging Face Hub t-tech/T-one); put model.safetensors or model.onnx "
-            "on disk and use from_local")
+        """Download the model weights from the Hub (the reference artifact
+        repo): ``model.safetensors``, else ``model.onnx``; the cached path."""
+        from tone_tpu_torch.hub import TONE_REPO, hf_hub_download
+
+        try:
+            return hf_hub_download(TONE_REPO, "model.safetensors")
+        except Exception:  # any failure, as tone_tpu/acoustic.py:149-152
+            return hf_hub_download(TONE_REPO, "model.onnx")
 
     # -- native fast path --------------------------------------------------
 

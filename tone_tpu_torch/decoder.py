@@ -108,8 +108,7 @@ def _native_lm_path(model_path: Path) -> Path:
 
 class BeamSearchCTCDecoder:
     """Beam-search CTC decoding on the host with optional n-gram LM shallow
-    fusion (``tone_tpu/decoder.py:100-244``; the Hugging Face download is
-    not ported: there is no network here).
+    fusion (``tone_tpu/decoder.py:100-244``).
 
     Defaults mirror the reference: alpha=0.4, beta=0.9, beam width 200
     (tone/decoder.py:108, :133).
@@ -190,10 +189,15 @@ class BeamSearchCTCDecoder:
 
     @classmethod
     def from_hugging_face(cls) -> "BeamSearchCTCDecoder":
-        """Not available: the kenlm.bin download needs the network."""
-        raise NotImplementedError(
-            "BeamSearchCTCDecoder.from_hugging_face needs the network (Hugging Face "
-            "Hub t-tech/T-one); put kenlm.bin on disk and use from_local")
+        """Download the LM artifact from the Hub and initialize."""
+        return cls.from_local(cls.download_from_hugging_face())
+
+    @classmethod
+    def download_from_hugging_face(cls) -> str:
+        """The cached path of the Hub's ``kenlm.bin`` (``hub.hf_hub_download``)."""
+        from tone_tpu_torch.hub import TONE_REPO, hf_hub_download
+
+        return hf_hub_download(TONE_REPO, "kenlm.bin")
 
     def forward(self, logprobs: "npt.NDArray[np.float32]") -> str:
         """Decode (L, vocab+1) logprobs to text via prefix beam search."""

@@ -101,9 +101,12 @@ class StreamingCTCPipeline:
     # -- factories ---------------------------------------------------------
 
     @classmethod
-    def from_hugging_face(cls, *, decoder_type: DecoderType = DecoderType.BEAM_SEARCH):
-        """Not available: the artifacts' download needs the network."""
-        model = StreamingCTCModel.from_hugging_face()
+    def from_hugging_face(cls, *, decoder_type: DecoderType = DecoderType.BEAM_SEARCH,
+                          device=None) -> "StreamingCTCPipeline":
+        """Create a pipeline from the Hub's artifacts (``hub.hf_hub_download``:
+        ``$HF_ENDPOINT``, the Hub cache), the model on ``device`` (``cuda``
+        unless the caller asks for the CPU)."""
+        model = StreamingCTCModel.from_hugging_face(device=device)
         return cls._assemble(model, decoder_type, BeamSearchCTCDecoder.from_hugging_face)
 
     @classmethod
@@ -152,9 +155,14 @@ class StreamingCTCPipeline:
 
     @staticmethod
     def download_from_hugging_face(dir_path: str | Path, only_acoustic: bool = False) -> None:
-        """Not available: the download needs the network."""
-        del dir_path, only_acoustic
-        StreamingCTCModel.download_from_hugging_face()
+        """Download the artifacts from the Hub into a local folder, as
+        ``model.safetensors`` and ``kenlm.bin`` (what ``from_local`` reads)."""
+        from shutil import copyfile
+
+        dir_path = Path(dir_path)
+        copyfile(StreamingCTCModel.download_from_hugging_face(), dir_path / "model.safetensors")
+        if not only_acoustic:
+            copyfile(BeamSearchCTCDecoder.download_from_hugging_face(), dir_path / "kenlm.bin")
 
     # -- inference ---------------------------------------------------------
 
