@@ -151,9 +151,18 @@ def test_aot_warmup_and_step_stats():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    from tone_tpu_torch.offline import OfflineTranscriber
     from tone_tpu_torch.profiling import trace
 
+    jc, tc = tiny_configs("float32", ARTIFACT_ENCODER)
+    _, tv = tiny_variables(jc, tc, seed=7)
+    transcriber = OfflineTranscriber(tv, tc, batch_size=2, device="cpu")
     with trace(str(tmp_path / "trace")) as log_dir:
         torch.ones(8).sum()
+        transcriber.transcribe([audio(3000, seed=1), audio(5000, seed=2)])
     with open(os.path.join(log_dir, "trace.json"), encoding="utf-8") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    # the program's spans beside the operations they dispatched
+    assert {"offline.assemble", "offline.forward", "offline.wait", "offline.split",
+            "offline.decode"} <= names

@@ -29,6 +29,14 @@ the chosen forward; every device's rows are queued before any is waited
 on, so the devices overlap, and each device keeps the two-deep pipeline.
 The logprobs are gathered in row order, then split and decoded as on one
 device.
+
+Traced (``profiling``), each batch records the spans ``offline.assemble``
+(pad, bucket, pin, queue the copy to the device), ``offline.forward`` (the
+forward's dispatch and the copies back), ``offline.wait``,
+``offline.split``, ``offline.decode`` and ``offline.align``, with the
+batch's index in the call as their id, and the counts
+``offline.audio_samples`` (the rows' own samples) and
+``offline.padded_samples`` (the samples the forward computes).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tone_tpu_torch import profiling
 from tone_tpu_torch.acoustic import cast_params_for_inference
 from tone_tpu_torch.config import ToneConfig
 from tone_tpu_torch.core.model import apply_offline, apply_streaming, init_streaming_state
@@ -129,18 +138,37 @@ class OfflineTranscriber:
         next one is launched."""
         order = np.argsort([len(a) for a in audios], kind="stable")
         pending = None
-        for start in range(0, len(order), self.batch_size):
-            launched = self._launch(order[start:start + self.batch_size], audios)
+        for batch, start in enumerate(range(0, len(order), self.batch_size)):
+            launched = self._launch(order[start:start + self.batch_size], audios, batch)
             if pending is not None:
                 finish(pending)
             pending = launched
         if pending is not None:
             finish(pending)
 
-    def _launch(self, idx, audios):
+    def _launch(self, idx, audios, batch: int):
         """Queue one batch's forward on every device and the copies of its
         logprobs to the host; returns (idx, row_chunks, host logprobs, copy
-        events) without waiting."""
+        events, batch) without waiting."""
+        with profiling.span("offline.assemble", batch):
+            row_chunks, chunks = self._assemble(idx, audios)
+        with profiling.span("offline.forward", batch):
+            forward = self._offline_forward if self.use_offline_forward else self._chunk_scan
+            logprobs = [forward(variables, c) for (_, variables), c in zip(self._shards, chunks)]
+            if self.device.type != "cuda":
+                return idx, row_chunks, torch.cat(logprobs), [], batch
+            per = chunks[0].shape[0]
+            host = torch.empty((per * len(chunks), *logprobs[0].shape[1:]), dtype=torch.float32,
+                               pin_memory=True)
+            events = []
+            for k, lp in enumerate(logprobs):
+                host[k * per:(k + 1) * per].copy_(lp, non_blocking=True)
+                events.append(torch.cuda.Event())
+                events[-1].record(torch.cuda.current_stream(lp.device))
+        return idx, row_chunks, host, events, batch
+
+    def _assemble(self, idx, audios) -> tuple[list[int], list[torch.Tensor]]:
+        """(row_chunks, each device's rows of the padded chunks, queued to it)."""
         cfg = self.config
         pad = cfg.padding
         chunk = cfg.audio_chunk_samples
@@ -159,47 +187,42 @@ class OfflineTranscriber:
         chunks = torch.from_numpy(audio_arr.reshape(n_rows, n_chunks, chunk))
         if self.device.type == "cuda":
             chunks = chunks.pin_memory()
-        chunks = [chunks[k * per:(k + 1) * per].to(dev, non_blocking=True)
-                  for k, (dev, _) in enumerate(self._shards)]
-        forward = self._offline_forward if self.use_offline_forward else self._chunk_scan
-        logprobs = [forward(variables, c) for (_, variables), c in zip(self._shards, chunks)]
-        if self.device.type != "cuda":
-            return idx, row_chunks, torch.cat(logprobs), []
-        host = torch.empty((n_rows, *logprobs[0].shape[1:]), dtype=torch.float32,
-                           pin_memory=True)
-        events = []
-        for k, lp in enumerate(logprobs):
-            host[k * per:(k + 1) * per].copy_(lp, non_blocking=True)
-            events.append(torch.cuda.Event())
-            events[-1].record(torch.cuda.current_stream(lp.device))
-        return idx, row_chunks, host, events
+        if profiling.recording():
+            profiling.count("offline.audio_samples", sum(len(audios[i]) for i in idx))
+            profiling.count("offline.padded_samples", audio_arr.size)
+        return row_chunks, [chunks[k * per:(k + 1) * per].to(dev, non_blocking=True)
+                            for k, (dev, _) in enumerate(self._shards)]
 
     @staticmethod
     def _wait(launched):
         """(idx, row_chunks, numpy logprobs) of a launched batch, once its
         copies to the host are done."""
-        idx, row_chunks, logprobs, events = launched
-        for event in events:
-            event.synchronize()
+        idx, row_chunks, logprobs, events, batch = launched
+        with profiling.span("offline.wait", batch):
+            for event in events:
+                event.synchronize()
         return idx, row_chunks, logprobs.numpy()
 
     def _finish(self, launched, results) -> None:
         """Split and decode a launched batch's logprobs."""
         idx, row_chunks, logprobs = self._wait(launched)
+        batch = launched[-1]
         frames = self.config.encoder.chunk_size
         split = []
-        for row, i in enumerate(idx):
-            phrases, _ = self._splitter.forward(logprobs[row, :row_chunks[row] * frames],
-                                                None, is_last=True)
-            split.append((i, phrases))
+        with profiling.span("offline.split", batch):
+            for row, i in enumerate(idx):
+                phrases, _ = self._splitter.forward(logprobs[row, :row_chunks[row] * frames],
+                                                    None, is_last=True)
+                split.append((i, phrases))
 
         flat = [p for _, phrases in split for p in phrases]
         forward_batch = getattr(self.decoder, "forward_batch", None)
-        if forward_batch is not None:
-            # A device decoder: all phrases of the batch in one call.
-            texts = forward_batch([np.ascontiguousarray(p.logprobs) for p in flat])
-        else:
-            texts = [self.decoder.forward(np.ascontiguousarray(p.logprobs)) for p in flat]
+        with profiling.span("offline.decode", batch):
+            if forward_batch is not None:
+                # A device decoder: all phrases of the batch in one call.
+                texts = forward_batch([np.ascontiguousarray(p.logprobs) for p in flat])
+            else:
+                texts = [self.decoder.forward(np.ascontiguousarray(p.logprobs)) for p in flat]
 
         word_spans = [None] * len(flat)
         if self.word_timestamps:
@@ -207,8 +230,9 @@ class OfflineTranscriber:
             # bucket: the batched twin of align.py.
             from tone_tpu_torch.ops.align_device import align_words_batch
 
-            word_spans = align_words_batch([p.logprobs for p in flat], texts,
-                                           device=self.device)
+            with profiling.span("offline.align", batch):
+                word_spans = align_words_batch([p.logprobs for p in flat], texts,
+                                               device=self.device)
 
         it = iter(zip(texts, word_spans))
         for i, phrases in split:

@@ -14,6 +14,11 @@ inference weights (one per distinct device) and the state of its slots.
 A tick copies every device's chunks first, then queues each device's step
 in turn, so that the devices overlap, and gathers the logprobs in slot
 order; ``read_slot``/``write_slot`` go to the slot's device.
+
+Traced (``profiling``), a tick records the spans ``arena.upload`` (the
+chunks and masks to the devices), ``arena.dispatch`` (the steps queued)
+and ``arena.readback`` (the logprobs to the host, which waits for the
+devices).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tone_tpu_torch import profiling
 from tone_tpu_torch.acoustic import cast_params_for_inference
 from tone_tpu_torch.config import ToneConfig
 from tone_tpu_torch.core.model import (
@@ -86,14 +92,17 @@ class StreamArena:
         """
         # Chunks cross the host boundary as int16 (half the bytes of the
         # int32 API dtype) and are widened on the device.
-        host = (torch.from_numpy(np.asarray(chunks, np.int16)),
-                torch.from_numpy(np.asarray(active, bool)),
-                torch.from_numpy(np.asarray(reset, bool)))
-        per = self.slots_per_device
-        inputs = [[t[k * per:(k + 1) * per].to(dev) for t in host]
-                  for k, dev in enumerate(self._devices)]
-        logprobs = [self._step(k, *args) for k, args in enumerate(inputs)]
-        return np.concatenate([lp.cpu().numpy() for lp in logprobs])
+        with profiling.span("arena.upload"):
+            host = (torch.from_numpy(np.asarray(chunks, np.int16)),
+                    torch.from_numpy(np.asarray(active, bool)),
+                    torch.from_numpy(np.asarray(reset, bool)))
+            per = self.slots_per_device
+            inputs = [[t[k * per:(k + 1) * per].to(dev) for t in host]
+                      for k, dev in enumerate(self._devices)]
+        with profiling.span("arena.dispatch"):
+            logprobs = [self._step(k, *args) for k, args in enumerate(inputs)]
+        with profiling.span("arena.readback"):
+            return np.concatenate([lp.cpu().numpy() for lp in logprobs])
 
     def _step(self, k: int, chunks_dev: torch.Tensor, active_dev: torch.Tensor,
               reset_dev: torch.Tensor) -> torch.Tensor:

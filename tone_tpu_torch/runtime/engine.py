@@ -13,6 +13,14 @@ of a tick in one batched device call (with per-stream n-best and hotwords).
 Interim text comes from the greedy collapse in the tick, from a carried
 host beam search per stream on the pool (``interim_beam``), or from a beam
 arena on the device (``interim_device_beam``).
+
+Traced (``profiling``), a tick records the span ``engine.tick`` over its
+phases ``engine.bind`` (eviction, binding, assembling the chunks),
+``engine.step`` (the arena's ``arena.upload``, ``arena.dispatch`` and
+``arena.readback``), ``engine.split`` and ``engine.finish`` (the results,
+the decode submissions, the interims), and each decode-pool task its wait
+for a worker, ``engine.decode_wait``, and its work, ``engine.decode``: all
+with the tick's count as their id.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from tone_tpu_torch import profiling
 from tone_tpu_torch.config import ToneConfig
 from tone_tpu_torch.decoder import (
     BeamSearchCTCDecoder,
@@ -478,8 +487,12 @@ class MultiStreamEngine:
         futures resolve to ``TextPhrase`` (decoded on the thread pool),
         per-stream order is the list order.
         """
+        with profiling.span("engine.tick", self.stats.ticks):
+            return self._tick()
+
+    def _tick(self) -> dict[int, list[Future]]:
         t0 = time.monotonic()
-        with self._lock:
+        with profiling.span("engine.bind"), self._lock:
             self._evict_idle_locked()
             self._bind_candidates_locked()
             n = self.arena.n_slots
@@ -509,21 +522,35 @@ class MultiStreamEngine:
             return {}
 
         t_dev0 = time.monotonic()
-        with self._device_lock:  # vs. resume_stream's state write
+        with profiling.span("engine.step"), self._device_lock:  # vs. resume_stream's write
             logprobs = self.arena.tick(chunks, active, reset)
         t_device = time.monotonic() - t_dev0
 
-        slot_ids = np.array([s.slot for _, s, _ in ticking], np.int64)
-        lasts = np.array([last for _, _, last in ticking], bool)
-        tick_logprobs = logprobs[slot_ids].astype(np.float32, copy=False)
-        by_slot = self._splitter.forward_batch(tick_logprobs, slot_ids, lasts)
-        argmax = (tick_logprobs.argmax(axis=-1)
-                  if self.interim_transcripts and not self.interim_beam
-                  and not self.interim_device_beam else None)
-        device_texts = None
-        if self.interim_device_beam:
-            device_texts = self._tick_device_beams(logprobs, ticking, by_slot, beam_reset)
+        with profiling.span("engine.split"):
+            slot_ids = np.array([s.slot for _, s, _ in ticking], np.int64)
+            lasts = np.array([last for _, _, last in ticking], bool)
+            tick_logprobs = logprobs[slot_ids].astype(np.float32, copy=False)
+            by_slot = self._splitter.forward_batch(tick_logprobs, slot_ids, lasts)
+            argmax = (tick_logprobs.argmax(axis=-1)
+                      if self.interim_transcripts and not self.interim_beam
+                      and not self.interim_device_beam else None)
+            device_texts = None
+            if self.interim_device_beam:
+                device_texts = self._tick_device_beams(logprobs, ticking, by_slot, beam_reset)
 
+        with profiling.span("engine.finish"):
+            results = self._finish_tick(ticking, by_slot, tick_logprobs, argmax, device_texts)
+
+        self.stats.ticks += 1
+        elapsed = time.monotonic() - t0
+        self.stats.last_tick_seconds = elapsed
+        self.stats.last_host_seconds = elapsed - t_device
+        return results
+
+    def _finish_tick(self, ticking, by_slot, tick_logprobs, argmax, device_texts,
+                     ) -> dict[int, list[Future]]:
+        """The tick's results: phrase futures (decodes submitted to the
+        pool), interims, finished streams released."""
         results: dict[int, list[Future]] = {}
         interims: dict[int, str] = {}
         finished: list[int] = []
@@ -543,8 +570,8 @@ class MultiStreamEngine:
                 elif phrases:
                     # host decoders, and per-stream overrides: per phrase on
                     # the pool
-                    results[sid] = [self._decode_pool.submit(
-                        self._decode, p, stream.decoder, stream.nbest) for p in phrases]
+                    results[sid] = [self._submit(self._decode, p, stream.decoder, stream.nbest)
+                                    for p in phrases]
                 if device_texts is not None:
                     if phrases or is_last:
                         stream.interim_sent = ""
@@ -593,7 +620,7 @@ class MultiStreamEngine:
         if batch_finals:
             # The pool task dispatches the device call and resolves the
             # futures; the tick thread never waits for the decode.
-            self._decode_pool.submit(self._decode_batch, batch_finals)
+            self._submit(self._decode_batch, batch_finals)
         if self.interim_beam:
             # Surface beam-interim texts completed since the last tick.
             with self._interim_lock:
@@ -611,12 +638,20 @@ class MultiStreamEngine:
                             stream.interim_sent = text
                             interims[sid] = text
         self.last_interims = interims
-
-        self.stats.ticks += 1
-        elapsed = time.monotonic() - t0
-        self.stats.last_tick_seconds = elapsed
-        self.stats.last_host_seconds = elapsed - t_device
         return results
+
+    def _submit(self, fn, *args) -> Future:
+        """``fn(*args)`` on the decode pool; traced, with its wait for a
+        worker and its work as spans of the running tick."""
+        if not profiling.recording():
+            return self._decode_pool.submit(fn, *args)
+        tick, queued = self.stats.ticks, time.monotonic_ns()
+
+        def traced():
+            profiling.add_span("engine.decode_wait", queued, time.monotonic_ns(), tick)
+            with profiling.span("engine.decode", tick):
+                return fn(*args)
+        return self._decode_pool.submit(traced)
 
     def warmup(self) -> None:
         """Run every per-tick device path once before serving traffic: the
@@ -789,7 +824,7 @@ class MultiStreamEngine:
                     self._interim_results[sid] = (gen, text)
             return text
 
-        stream.beam_task = self._decode_pool.submit(work)
+        stream.beam_task = self._submit(work)
 
     def _word_times(self, logprob_phrase, text: str):
         if not self.word_timestamps:

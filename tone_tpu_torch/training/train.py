@@ -41,6 +41,15 @@ replicated leaf once.  AdamW acts elementwise on the shards.  ``save``
 writes the full, unsharded state (rank 0 writes), so that a checkpoint of
 any mesh restores on one device, and ``restore`` shards it again.
 ``eval_wer`` splits the rows over the data ranks and gathers the tokens.
+
+Traced (``profiling``), a step records the spans ``train.batch`` (the
+batch's conversion and upload), ``train.forward``, ``train.loss``,
+``train.backward`` (the gradients, averaged over the ranks on a mesh) and
+``train.optimizer`` (clip, AdamW, the parameters' update), with the
+state's step as their id, and the counts ``train.audio_samples`` (this
+rank's unpadded samples) and ``train.padded_samples`` (its rows times the
+padded length), read from the batch's host arrays (not counted where the
+caller staged the lengths on the device).
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
 
+from tone_tpu_torch import profiling
 from tone_tpu_torch.bridge import tree_leaves, tree_map
 from tone_tpu_torch.config import LABELS, ToneConfig
 from tone_tpu_torch.core.layers import mix_seed
@@ -339,6 +349,9 @@ class Trainer:
                   else torch.as_tensor(np.asarray(batch[k]))
                   for k in ("input_values", "input_lengths", "labels")]
         rows = self._rows(arrays[0].shape[0])
+        if profiling.recording() and arrays[1].device.type == "cpu":
+            profiling.count("train.audio_samples", int(arrays[1][rows].sum()))
+            profiling.count("train.padded_samples", arrays[0][rows].numel())
         return tuple(a[rows].to(self.device) for a in arrays)
 
     # -- steps -------------------------------------------------------------
@@ -356,32 +369,37 @@ class Trainer:
         mesh, the loss and gradients are averaged over the data ranks."""
         if seed is None:
             seed = mix_seed(state.rng, 1)
-        audio, lengths, labels = self._batch(batch)
+        with profiling.span("train.batch", state.step):
+            audio, lengths, labels = self._batch(batch)
         forward = functools.partial(self._forward, state.params, state.batch_stats, seed)
         with torch.enable_grad():
-            if self.config.remat is None:
-                logprobs, out_lens, new_stats = forward(audio, lengths)
-            else:
-                context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                             _dots_policy)
-                           if self.config.remat == "dots" else ckpt.noop_context_fn)
-                logprobs, out_lens, new_stats = ckpt.checkpoint(
-                    forward, audio, lengths, use_reentrant=False, context_fn=context)
-            loss = ctc_loss(logprobs, out_lens, labels, blank_id=self.model_config.blank_id)
+            with profiling.span("train.forward", state.step):
+                if self.config.remat is None:
+                    logprobs, out_lens, new_stats = forward(audio, lengths)
+                else:
+                    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                 _dots_policy)
+                               if self.config.remat == "dots" else ckpt.noop_context_fn)
+                    logprobs, out_lens, new_stats = ckpt.checkpoint(
+                        forward, audio, lengths, use_reentrant=False, context_fn=context)
+            with profiling.span("train.loss", state.step):
+                loss = ctc_loss(logprobs, out_lens, labels, blank_id=self.model_config.blank_id)
+        with profiling.span("train.backward", state.step):
             leaves = tree_leaves(state.params)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        loss = loss.detach()
-        if self.mesh is not None:
-            loss, *grads = self.mesh.average_over_data([loss, *grads])
-            if self.mesh.n_model > 1:
-                # Every model rank computes the replicated leaves' gradients
-                # in full, but the card's backward is not bit-repeatable:
-                # their average keeps the replicas equal.
-                rep = [i for i, spec in enumerate(param_specs(state.params))
-                       if MODEL_AXIS not in spec]
-                for i, g in zip(rep, self.mesh.average_over_model([grads[i] for i in rep])):
-                    grads[i] = g
+            with torch.enable_grad():
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+            loss = loss.detach()
+            if self.mesh is not None:
+                loss, *grads = self.mesh.average_over_data([loss, *grads])
+                if self.mesh.n_model > 1:
+                    # Every model rank computes the replicated leaves'
+                    # gradients in full, but the card's backward is not
+                    # bit-repeatable: their average keeps the replicas equal.
+                    rep = [i for i, spec in enumerate(param_specs(state.params))
+                           if MODEL_AXIS not in spec]
+                    for i, g in zip(rep, self.mesh.average_over_model([grads[i] for i in rep])):
+                        grads[i] = g
         return loss, _unflatten(state.params, grads), new_stats
 
     def train_step(self, state: TrainState, batch: dict[str, np.ndarray],
@@ -391,10 +409,11 @@ class Trainer:
         trainer donates its state."""
         rng, seed = mix_seed(state.rng, 0), mix_seed(state.rng, 1)
         loss, grads, new_stats = self.compute_gradients(state, batch, seed)
-        updates, opt_state = self.optimizer.update(grads, state.opt_state, state.params)
-        if updates is not None:
-            with torch.no_grad():
-                torch._foreach_add_(tree_leaves(state.params), tree_leaves(updates))
+        with profiling.span("train.optimizer", state.step):
+            updates, opt_state = self.optimizer.update(grads, state.opt_state, state.params)
+            if updates is not None:
+                with torch.no_grad():
+                    torch._foreach_add_(tree_leaves(state.params), tree_leaves(updates))
         return TrainState(step=state.step + 1, params=state.params, batch_stats=new_stats,
                           opt_state=opt_state, rng=rng), loss
 
