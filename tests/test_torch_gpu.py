@@ -981,3 +981,193 @@ def test_bench_prints_one_json_line_naming_the_card(cuda):
     assert {"metric", "value", "unit", "vs_baseline"} <= set(line)
     assert line["device"] == torch.cuda.get_device_name(0) and line["power_limit"].endswith("W")
     assert line["value"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The 16-bit products and convolutions of core/layers.py on the tensor cores,
+# against the widened float32 product of the same bf16 operands (TF32 off,
+# as resolve_device leaves the process), at the bulk forward's shapes and a
+# tiny one.  The two differ by the order of their float32 sums, at most
+# 2^-20 x sum |a * b| here, and then by one bf16 ulp at each rounding.
+# ---------------------------------------------------------------------------
+
+import time  # noqa: E402
+
+from tone_tpu_torch import profiling  # noqa: E402
+from tone_tpu_torch.acoustic import cast_params_for_inference  # noqa: E402
+from tone_tpu_torch.core import layers as L  # noqa: E402
+from tone_tpu_torch.core.frontend import get_frontend_constants, log_mel_offline  # noqa: E402
+from tone_tpu_torch.device import resolve_device  # noqa: E402
+from test_torch_products import _analytic_macs, one_channel_macs  # noqa: E402
+
+SUM_ORDER = 2.0 ** -20
+
+
+@pytest.fixture
+def card(cuda):
+    return resolve_device(cuda)
+
+
+def _bf16_spacing(t: torch.Tensor) -> torch.Tensor:
+    """The gap between neighbouring bf16 values at |t| (8 significant bits)."""
+    mag = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _rand(dev, shape, seed, scale=1.0, dtype=torch.bfloat16):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+
+
+# (rows, K, N): the bulk forward's feed-forward in-projections (lin12),
+# q/k/v/out and the conv module's pointwise products at the full and the
+# reduced rate, the reduction's pointwise product, the subsampling's output
+# (no bias) and the float32 CTC head on bf16 serving weights; and a tiny one.
+LINEAR_SHAPES = [(33280, 384, 3072), (16640, 384, 3072), (33280, 384, 384), (33280, 384, 768),
+                 (16640, 1536, 384), (33280, 2176, 384), (33280, 384, 35), (7, 24, 10)]
+
+
+@pytest.mark.parametrize("mode", ["bias", "no_bias", "reduce"])
+@pytest.mark.parametrize("m, k, n", LINEAR_SHAPES)
+def test_linear_on_tensor_cores_matches_widened(card, m, k, n, mode):
+    compute = torch.float32 if n == 35 else torch.bfloat16
+    x = _rand(card, (16, m // 16, k) if m > 16 else (m, k), seed=m + k)
+    p = {"w": _rand(card, (k, n), seed=n, scale=k ** -0.5)}
+    if mode != "no_bias":
+        p["b"] = _rand(card, (n,), seed=1, scale=0.1, dtype=torch.float32)
+    reduce = (lambda y: 2 * y) if mode == "reduce" else None
+    with torch.no_grad():
+        got = L.linear(p, x, compute, reduce)
+        s = torch.matmul(x.float(), p["w"].float())
+        s = 2 * s if reduce else s
+        want = (s + p["b"] if "b" in p else s).to(compute)
+        scale = torch.matmul(x.float().abs(), p["w"].float().abs()) * (2 if reduce else 1)
+    torch.cuda.synchronize()
+    assert got.dtype == compute and got.shape == want.shape
+    gap = (got.float() - want.float()).abs()
+    allowed = SUM_ORDER * scale
+    if compute == torch.bfloat16:
+        allowed = allowed + _bf16_spacing(torch.maximum(got.float().abs(), want.float().abs()))
+    assert bool((gap <= allowed).all()), float((gap - allowed).max())
+
+
+def test_linear_with_autograd_on_stays_widened_on_card(card):
+    """Autograd recording (the training forward): the widened product, to
+    the bit."""
+    x = _rand(card, (4, 100, 384), seed=3).requires_grad_(True)
+    p = {"w": _rand(card, (384, 768), seed=4, scale=0.05), "b": _rand(card, (768,), 5,
+                                                                       dtype=torch.float32)}
+    got = L.linear(p, x)
+    assert got.requires_grad
+    want = (torch.matmul(x.detach().float(), p["w"].float()) + p["b"]).to(torch.bfloat16)
+    assert torch.equal(got.detach(), want)
+
+
+# The score and context products of mhsa (B, H, Tq, dh) x (B, H, dh, Tkv) and
+# of mhsa_blocked (B, H, n, c, dh) x (B, H, n, dh, w + c) at the bulk
+# forward's 16 rows, 8 heads of 48 and 208 chunks, as the layers call them:
+# against the key's transposed view, the weights rounded to bf16.
+PRODUCT_SHAPES = {"mhsa": ((2, 8, 10, 48), (2, 8, 40, 48)),
+                  "blocked_full": ((16, 8, 208, 10, 48), (16, 8, 208, 10, 48)),
+                  "blocked_full_ctx": ((16, 8, 208, 10, 48), (16, 8, 208, 40, 48)),
+                  "blocked_reduced_ctx": ((16, 8, 104, 5, 48), (16, 8, 104, 20, 48)),
+                  "tiny": ((1, 2, 3, 4, 8), (1, 2, 3, 8, 8))}
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCT_SHAPES))
+def test_attention_products_on_tensor_cores_match_widened(card, case):
+    qs, ks = PRODUCT_SHAPES[case]
+    q, k = _rand(card, qs, seed=6), _rand(card, ks, seed=7)
+    with torch.no_grad():
+        scores = L._mm(q, k.transpose(-1, -2))
+        want = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scale = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2))
+        assert scores.dtype == torch.float32
+        assert bool(((scores - want).abs() <= SUM_ORDER * scale).all())
+
+        attn = torch.softmax(want, dim=-1).to(torch.bfloat16)
+        ctx = L._mm(attn, k).to(torch.bfloat16)
+        s = torch.matmul(attn.float(), k.float())
+        want_ctx = s.to(torch.bfloat16)
+        allowed = (SUM_ORDER * torch.matmul(attn.float(), k.float().abs())
+                   + _bf16_spacing(torch.maximum(ctx.float().abs(), want_ctx.float().abs())))
+    assert bool(((ctx.float() - want_ctx.float()).abs() <= allowed).all())
+
+
+# (kind, input, weights, stride, groups): the subsampling's two convolutions
+# (the first, of one input channel, on its widened path),
+# the conv module's depthwise convolution at the full and reduced rate, the
+# temporal reduction's strided one (4 outputs per channel), and tiny ones.
+CONV_CASES = {"sub_conv1": ("2d", (16, 1, 6250, 64), (32, 1, 11, 21), (1, 1), 1),
+              "sub_conv2": ("2d", (16, 32, 6250, 44), (64, 32, 11, 11), (3, 1), 1),
+              "depthwise_full": ("1d", (16, 2110, 384), (384, 1, 31), 1, 384),
+              "depthwise_reduced": ("1d", (16, 1070, 384), (384, 1, 31), 1, 384),
+              "reduction_strided": ("1d", (16, 2081, 384), (1536, 1, 3), 2, 384),
+              "tiny_2d": ("2d", (2, 8, 20, 16), (4, 8, 5, 3), (2, 1), 1),
+              "tiny_one_channel_strided": ("2d", (2, 1, 20, 16), (4, 1, 5, 3), (2, 3), 1),
+              "tiny_depthwise": ("1d", (2, 19, 8), (8, 1, 3), 1, 8)}
+
+
+def _conv(kind, x, w, stride, groups):
+    if kind == "2d":
+        return torch.nn.functional.conv2d(x, w, stride=stride)
+    return torch.nn.functional.conv1d(x.transpose(1, 2), w, stride=stride,
+                                      groups=groups).transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_convolutions_on_tensor_cores_match_widened(card, case):
+    """The reference's two roundings: the convolution's, then the sum with
+    the float32 bias's."""
+    kind, xs, ws, stride, groups = CONV_CASES[case]
+    x = _rand(card, xs, seed=8)
+    p = {"w": _rand(card, ws, seed=9, scale=(ws[1] * ws[2] * (ws[3] if kind == "2d" else 1))
+                    ** -0.5),
+         "b": _rand(card, (ws[0],), seed=10, scale=0.1, dtype=torch.float32)}
+    shape = (1, -1, 1, 1) if kind == "2d" else (-1,)
+    with torch.no_grad():
+        got = (L.conv2d(p, x, stride) if kind == "2d"
+               else L.conv1d_nhc(p, x, stride=stride, groups=groups))
+        c = _conv(kind, x.float(), p["w"].float(), stride, groups)
+        want = (c.to(torch.bfloat16).float() + p["b"].reshape(shape)).to(torch.bfloat16)
+        allowed = (SUM_ORDER * _conv(kind, x.float().abs(), p["w"].float().abs(), stride, groups)
+                   + _bf16_spacing(c)
+                   + _bf16_spacing(torch.maximum(got.float().abs(), want.float().abs())))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(((got.float() - want.float()).abs() <= allowed).all())
+
+
+def test_tiny_offline_forward_on_card_counts_its_products_on_tensor_cores(card):
+    """Under ``profiling.record()`` a bf16 inference forward on the card
+    counts every multiply-add as ``layers.tc_macs`` (the analytic count of
+    tests/test_torch_products.py) but the one-input-channel convolution's,
+    which stays widened; a training forward counts none there.  The card's
+    torch has the bf16 products with a float32 result."""
+    assert L._PRODUCTS_TO_FLOAT32
+    cfg, variables = _tiny_bf16()
+    cast = to_device(cast_params_for_inference(variables, cfg), card)
+    wav = torch.from_numpy(np.random.default_rng(2).integers(
+        -20000, 20000, (2, 2400 * 5 + 313)).astype(np.int32)).to(card)
+
+    def counts(fn):
+        t0 = time.monotonic_ns()
+        with profiling.record():
+            fn()
+            torch.cuda.synchronize()
+        out: dict = {}
+        for ev in profiling.events(t0, time.monotonic_ns()):
+            if isinstance(ev, profiling.Count) and ev.name.startswith("layers."):
+                out[ev.name] = out.get(ev.name, 0) + ev.n
+        return out
+
+    inference = counts(lambda: apply_offline(cast, cfg, wav))
+    feats, _ = log_mel_offline(wav.float(), None, get_frontend_constants(cfg.frontend, card))
+    t_feat = feats.shape[1]
+    total = _analytic_macs(cfg, wav.shape[0], t_feat, blocked=True, b1=True)
+    widened = one_channel_macs(cfg, wav.shape[0], t_feat)
+    assert inference == {"layers.tc_macs": total - widened, "layers.widened_macs": widened}
+
+    train_vars = to_device(variables, card)
+    train = counts(lambda: apply_offline(train_vars, cfg, wav.float() / 32767, training=True))
+    assert "layers.tc_macs" not in train and train["layers.widened_macs"] > 0

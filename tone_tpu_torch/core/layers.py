@@ -15,14 +15,40 @@ Rounding policy (where port and reference could silently part):
   to the compute dtype, their product is summed in float32, the float32
   bias is added, and only then is the result rounded to the compute dtype.
   ``torch.matmul`` on bf16 tensors would round to bf16 before the bias (a
-  second rounding), so the port widens the bf16 operands to float32 first:
-  products of two bf16 values are exact in float32, so this is the
-  reference's bf16 x bf16 -> float32 product.
+  second rounding), so no product here returns in the compute dtype.
 * Convolutions round TWICE, as the reference does: the convolution output
   is rounded to the compute dtype before the float32 bias is added
-  (``tone_tpu/core/layers.py:171-173, :208-211``).  The convolution itself
-  runs on float32 copies of the rounded operands.
+  (``tone_tpu/core/layers.py:171-173, :208-211``).
 * Norms, softmax and the score product run in float32.
+
+Every product and convolution of bf16 operands is the reference's:
+products of two bf16 values summed in float32.  Where it runs:
+
+* On the tensor cores, on a CUDA device when both operands are bf16 and
+  autograd is not recording (serving, bulk, alignment, the exported step).
+  Products are ``torch.mm`` / ``torch.bmm`` with ``out_dtype=torch.float32``
+  (bf16 operands, float32 accumulators and result; PyTorch 2.8 or later),
+  and ``linear`` adds its bias to that float32 result in the pass that
+  rounds it.  Convolutions run on the bf16 operands (cuDNN, or PyTorch's
+  depthwise kernel), whose float32 accumulators are rounded once to the
+  compute dtype, the rounding the reference makes before the bias.  A
+  float32 compute dtype over bf16 operands (the CTC head on bf16 serving
+  weights) is the same product: the widening is exact.
+* Widened, everywhere else: the operands are copied to float32 first, whose
+  products of two bf16 values are exact, and the float32 product or
+  convolution runs on the copies.  That is the CPU (which has no bf16
+  product with a float32 result), float32 compute configs, autograd
+  recording (``Trainer``, ``apply_offline(training=True)``: the training
+  backward and the remat policy's saved ``aten.mm`` outputs are the
+  widened ones), the products under a torch older than 2.8 (no
+  ``aten::mm.dtype``), and the convolution of one input channel (``conv2d``:
+  cuDNN's bf16 kernel for it is the slower).  No process-wide precision
+  flag is read or set here (``device.py`` keeps TF32 off for the float32
+  products).
+
+The two differ only in summation order.  While ``profiling.recording()``,
+each product and convolution counts its multiply-adds as
+``layers.tc_macs`` or ``layers.widened_macs``.
 
 The bf16 step therefore differs from the reference's only by summation
 order and by where bf16 elementwise chains are rounded; the tolerance that
@@ -38,6 +64,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tone_tpu_torch import profiling
 
 Params = dict[str, Any]
 
@@ -98,22 +126,74 @@ def init_mhsa(gen, d_model: int, n_heads: int, recompute_scores: bool) -> Params
 # ---------------------------------------------------------------------------
 
 
+# ``torch.mm`` / ``torch.bmm`` with ``out_dtype`` (``aten::mm.dtype``): a
+# float32 result of bf16 operands, from PyTorch 2.8.  An older torch runs
+# every product widened (module docstring).
+_PRODUCTS_TO_FLOAT32 = all("dtype" in op.overloads()
+                           for op in (torch.ops.aten.mm, torch.ops.aten.bmm))
+
+
+def _on_tensor_cores(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a product or convolution of ``a`` and ``b`` can run on their
+    bf16 values (module docstring): autograd not recording, a CUDA device,
+    both bf16."""
+    return (not torch.is_grad_enabled() and a.is_cuda
+            and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16)
+
+
+def _products_on_tensor_cores(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the product ``a @ b`` runs on their bf16 values."""
+    return _PRODUCTS_TO_FLOAT32 and _on_tensor_cores(a, b)
+
+
+def _count_macs(tensor_cores: bool, macs: int) -> None:
+    profiling.count("layers.tc_macs" if tensor_cores else "layers.widened_macs", macs)
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Product of two compute-dtype tensors, summed and returned in float32."""
-    return torch.matmul(a.float(), b.float())
+    """``a @ b`` summed and returned in float32.  ``b`` is a matrix, or has
+    ``a``'s leading (batch) dimensions."""
+    return _product(a, b, _products_on_tensor_cores(a, b))
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
+    if profiling.recording():
+        _count_macs(tensor_cores, math.prod(a.shape) * b.shape[-1])
+    if not tensor_cores:
+        return torch.matmul(a.float(), b.float())
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    if b.ndim == 2:
+        y = torch.mm(a.reshape(-1, k), b, out_dtype=torch.float32)
+    else:
+        y = torch.bmm(a.reshape(-1, m, k), b.reshape(-1, k, n), out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], n)
 
 
 def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16,
            reduce=None) -> torch.Tensor:
     """``x @ w + b``.  ``reduce`` (a row-split product under tensor
     parallelism) sums the float32 partial products over the model ranks
-    before the bias is added, once."""
-    y = _mm(x.to(compute_dtype), p["w"].to(compute_dtype))
+    before the bias is added, once.  A float32 compute dtype takes the
+    operands as they are: the product widens bf16 ones exactly."""
+    w = p["w"]
+    if compute_dtype != torch.float32:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    tc = _products_on_tensor_cores(x, w)
+    y = _product(x, w, tc)
     if reduce is not None:
         y = reduce(y)
-    if "b" in p:
-        y = y + p["b"].float()
-    return y.to(compute_dtype)
+    if "b" not in p:
+        return y.to(compute_dtype)
+    return _add_bias(y, p["b"].float(), compute_dtype, tc)
+
+
+def _add_bias(y: torch.Tensor, b: torch.Tensor, compute_dtype,
+              tensor_cores: bool) -> torch.Tensor:
+    """``y + b`` in float32, rounded once to the compute dtype: on the
+    tensor-core path (no autograd) as the sum is stored, in one pass."""
+    if tensor_cores:
+        return torch.add(y, b, out=torch.empty_like(y, dtype=compute_dtype))
+    return (y + b).to(compute_dtype)
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -235,9 +315,18 @@ def glu(x: torch.Tensor, dim: int) -> torch.Tensor:
     return a * torch.sigmoid(b)
 
 
-def _conv_bias(y: torch.Tensor, p: Params, shape: tuple[int, ...],
-               compute_dtype) -> torch.Tensor:
-    y = y.to(compute_dtype).float()  # the reference rounds before the bias
+def _conv_bias(y: torch.Tensor, p: Params, w: torch.Tensor, shape: tuple[int, ...],
+               compute_dtype, tensor_cores: bool) -> torch.Tensor:
+    """The convolution ``y`` of weights ``w`` rounded to the compute dtype
+    (as the reference rounds it before the bias), plus the float32 bias,
+    rounded again."""
+    if profiling.recording():
+        _count_macs(tensor_cores, y.numel() * math.prod(w.shape[1:]))
+    if tensor_cores:  # y is already rounded
+        if "b" not in p:
+            return y
+        return _add_bias(y, p["b"].float().reshape(shape), compute_dtype, True)
+    y = y.to(compute_dtype).float()
     if "b" in p:
         y = y + p["b"].float().reshape(shape)
     return y.to(compute_dtype)
@@ -246,9 +335,13 @@ def _conv_bias(y: torch.Tensor, p: Params, shape: tuple[int, ...],
 def conv2d(p: Params, x: torch.Tensor, stride: tuple[int, int],
            compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Valid 2D convolution, NCHW input / OIHW weights."""
-    y = F.conv2d(x.to(compute_dtype).float(), p["w"].to(compute_dtype).float(),
-                 stride=stride)
-    return _conv_bias(y, p, (1, -1, 1, 1), compute_dtype)
+    x, w = x.to(compute_dtype), p["w"].to(compute_dtype)
+    # One input channel (the subsampling's first convolution) stays widened:
+    # cuDNN's bf16 kernel for it took 7.17 ms on the H100 at the bulk batch's
+    # 16 x 6,250 frames of 64 mels, the float32 one 3.03 ms.
+    tc = w.shape[1] > 1 and _on_tensor_cores(x, w)
+    y = F.conv2d(x, w, stride=stride) if tc else F.conv2d(x.float(), w.float(), stride=stride)
+    return _conv_bias(y, p, w, (1, -1, 1, 1), compute_dtype, tc)
 
 
 def conv1d_nhc(p: Params, x: torch.Tensor, stride: int = 1, groups: int = 1,
@@ -256,9 +349,12 @@ def conv1d_nhc(p: Params, x: torch.Tensor, stride: int = 1, groups: int = 1,
     """Valid 1D convolution in the reference's feature-last layout: (B, T, C)
     in and out, (O, I/groups, K) weights.  Output channel ``o`` of a grouped
     convolution reads input channels of group ``o // (O / groups)``."""
-    y = F.conv1d(x.to(compute_dtype).float().transpose(1, 2),
-                 p["w"].to(compute_dtype).float(), stride=stride, groups=groups)
-    return _conv_bias(y.transpose(1, 2), p, (-1,), compute_dtype)
+    x, w = x.to(compute_dtype), p["w"].to(compute_dtype)
+    tc = _on_tensor_cores(x, w)
+    if not tc:
+        x, w = x.float(), w.float()
+    y = F.conv1d(x.transpose(1, 2), w, stride=stride, groups=groups)
+    return _conv_bias(y.transpose(1, 2), p, w, (-1,), compute_dtype, tc)
 
 
 @functools.lru_cache(maxsize=64)

@@ -74,8 +74,9 @@ def init_streaming_state(config: ToneConfig, batch_size: int, dtype=None,
 
 
 def _head(params: Params, encoded: torch.Tensor) -> torch.Tensor:
-    """1x1-conv CTC head as a float32 matmul (bf16-cast weights widened),
-    then a float32 log-softmax."""
+    """1x1-conv CTC head as a float32 product (of the bf16 activations and
+    bf16-cast weights: on the card's tensor cores with autograd off, widened
+    otherwise; core/layers.py), then a float32 log-softmax."""
     logits = L.linear(params, encoded, torch.float32)
     return torch.log_softmax(logits.float(), dim=-1)
 

@@ -12,9 +12,10 @@ runs float32 matmuls in full float32 by default but float32 convolutions in
 TF32 (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
 decimal digits.  ``resolve_device`` therefore sets both flags to False for
 the process when it hands out a CUDA device.  The bf16 path is unaffected:
-it widens bf16 operands to float32 before its products (core/layers.py), so
-those products are exact and summed in float32, as the reference's
-``preferred_element_type=float32`` matmuls are.
+on the card its inference products and convolutions run on the bf16
+operands with float32 accumulators, and elsewhere it widens them to float32
+first (core/layers.py); either way products of bf16 values are summed in
+float32, as the reference's ``preferred_element_type=float32`` matmuls are.
 """
 
 from __future__ import annotations
