@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from tone_tpu_torch.bridge import tree_map
-from tone_tpu_torch.config import ToneConfig
+from tone_tpu_torch.config import FastConformerConfig, ModelConfig, ToneConfig, config_from_dict
 
 Params = dict[str, Any]
 
@@ -174,8 +174,67 @@ def _float32(v) -> np.ndarray:
     return np.asarray(v, dtype=np.float32)
 
 
+def convert_fastconformer_state_dict(state_dict: Mapping[str, Any],
+                                     config: FastConformerConfig) -> dict[str, Params]:
+    """NeMo's FastConformer CTC ``state_dict`` (``EncDecCTCModelBPE``:
+    ``encoder.pre_encode.conv.*``, ``encoder.pre_encode.out``,
+    ``encoder.layers.{i}.*``, ``decoder.decoder_layers.0``; the
+    preprocessor's buffers are not read) as the port's variables
+    (``core.fastconformer``).  Values are torch tensors or numpy arrays;
+    tensors stay on their device, in float32.  Linears and 1x1 convolutions
+    become ``(in, out)`` matrices; other convolutions keep torch's layout."""
+    sd = {k: torch.as_tensor(v).detach().float() for k, v in state_dict.items()}
+
+    def lin(name, bias=True):
+        w = sd[f"{name}.weight"]
+        p = {"w": w.reshape(w.shape[0], -1).t().contiguous()}
+        if bias:
+            p["b"] = sd[f"{name}.bias"]
+        return p
+
+    def conv(name):
+        return {"w": sd[f"{name}.weight"], "b": sd[f"{name}.bias"]}
+
+    def ln(name):
+        return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+    e = config.encoder
+    stages = tuple({"dw": conv(f"encoder.pre_encode.conv.{2 + 3 * i}"),
+                    "pw": conv(f"encoder.pre_encode.conv.{3 + 3 * i}")}
+                   for i in range(e.n_subsampling_convs - 1))
+    pre = {"conv0": conv("encoder.pre_encode.conv.0"), "stages": stages,
+           "out": lin("encoder.pre_encode.out")}
+    layers, stats = [], []
+    for i in range(e.n_layers):
+        pfx = f"encoder.layers.{i}"
+        att = {n: lin(f"{pfx}.self_attn.{n}")
+               for n in ("linear_q", "linear_k", "linear_v", "linear_out")}
+        att.update(linear_pos=lin(f"{pfx}.self_attn.linear_pos", bias=False),
+                   pos_bias_u=sd[f"{pfx}.self_attn.pos_bias_u"],
+                   pos_bias_v=sd[f"{pfx}.self_attn.pos_bias_v"])
+        bn = f"{pfx}.conv.batch_norm"
+        layers.append({
+            "norm_ff1": ln(f"{pfx}.norm_feed_forward1"),
+            "ff1": {"linear1": lin(f"{pfx}.feed_forward1.linear1"),
+                    "linear2": lin(f"{pfx}.feed_forward1.linear2")},
+            "norm_att": ln(f"{pfx}.norm_self_att"), "att": att,
+            "norm_conv": ln(f"{pfx}.norm_conv"),
+            "conv": {"pw1": lin(f"{pfx}.conv.pointwise_conv1"),
+                     "dw": conv(f"{pfx}.conv.depthwise_conv"), "bn": ln(bn),
+                     "pw2": lin(f"{pfx}.conv.pointwise_conv2")},
+            "norm_ff2": ln(f"{pfx}.norm_feed_forward2"),
+            "ff2": {"linear1": lin(f"{pfx}.feed_forward2.linear1"),
+                    "linear2": lin(f"{pfx}.feed_forward2.linear2")},
+            "norm_out": ln(f"{pfx}.norm_out")})
+        stats.append({"conv_bn": {"mean": sd[f"{bn}.running_mean"],
+                                  "var": sd[f"{bn}.running_var"]}})
+    head = lin("decoder.decoder_layers.0")
+    return {"params": {"encoder": {"pre_encode": pre, "layers": tuple(layers)}, "head": head},
+            "batch_stats": {"layers": tuple(stats)}}
+
+
 def convert_torch_state_dict(state_dict: Mapping[str, Any],
-                             config: ToneConfig | None = None) -> dict[str, Params]:
+                             config: ModelConfig | None = None) -> dict[str, Params]:
     """Convert a reference torch ``state_dict`` to the port's variables.
 
     Accepts either a bare ``Tone`` state_dict or an HF ``ToneForCTC`` one
@@ -187,6 +246,8 @@ def convert_torch_state_dict(state_dict: Mapping[str, Any],
     Returns:
         ``{"params": ..., "batch_stats": ...}`` of float32 CPU tensors.
     """
+    if isinstance(config, FastConformerConfig):
+        return convert_fastconformer_state_dict(state_dict, config)
     if config is None:
         config = ToneConfig()
     sd: dict[str, np.ndarray] = {}
@@ -272,7 +333,7 @@ def convert_torch_state_dict(state_dict: Mapping[str, Any],
                     variables)
 
 
-def load_torch_checkpoint(path: str | Path, config: ToneConfig | None = None) -> dict[str, Params]:
+def load_torch_checkpoint(path: str | Path, config: ModelConfig | None = None) -> dict[str, Params]:
     """Load a reference checkpoint file (.safetensors, .bin/.pt) and convert."""
     path = Path(path)
     if path.suffix == ".safetensors":
@@ -288,8 +349,9 @@ def load_torch_checkpoint(path: str | Path, config: ToneConfig | None = None) ->
 
 
 def save_checkpoint(path: str | Path, variables: dict[str, Params],
-                    config: ToneConfig | None = None) -> None:
-    """Save variables (in the reference naming) and the config to a directory."""
+                    config: ModelConfig | None = None) -> None:
+    """Save variables (in the reference naming; NeMo's for a FastConformer)
+    and the config to a directory."""
     from tone_tpu_torch.interop import save_torch_checkpoint
 
     path = Path(path).absolute()
@@ -299,11 +361,13 @@ def save_checkpoint(path: str | Path, variables: dict[str, Params],
         (path / "config.json").write_text(json.dumps(config.to_dict(), indent=2))
 
 
-def load_checkpoint(path: str | Path, config: ToneConfig | None = None,
-                    ) -> tuple[dict[str, Params], ToneConfig | None]:
+def load_checkpoint(path: str | Path, config: ModelConfig | None = None,
+                    ) -> tuple[dict[str, Params], ModelConfig | None]:
     """Load a directory saved by :func:`save_checkpoint`: (variables, the
     stored config or None).  ``config`` gives the layout to read with where
-    the directory stores none (default ``ToneConfig()``).
+    the directory stores none (default ``ToneConfig()``); a stored
+    ``config.json`` whose ``architecture`` is ``fastconformer_ctc`` reads
+    as a ``FastConformerConfig``.
 
     A JAX checkpoint directory (orbax's ``variables/``) raises ValueError:
     write it once with ``tone_tpu.interop.save_torch_checkpoint``, or load
@@ -321,5 +385,5 @@ def load_checkpoint(path: str | Path, config: ToneConfig | None = None,
     stored = None
     cfg_file = path / "config.json"
     if cfg_file.exists():
-        stored = ToneConfig.from_dict(json.loads(cfg_file.read_text()))
+        stored = config_from_dict(json.loads(cfg_file.read_text()))
     return load_torch_checkpoint(weights, stored or config), stored

@@ -249,3 +249,211 @@ class ToneConfig:
         if "should_recompute_att_scores" in enc:
             enc["should_recompute_att_scores"] = tuple(enc["should_recompute_att_scores"])
         return cls(frontend=FrontendConfig(**fe), encoder=EncoderConfig(**enc), **d)
+
+
+# ---------------------------------------------------------------------------
+# FastConformer CTC (NVIDIA NeMo's ``EncDecCTCModelBPE`` with a FastConformer
+# encoder, e.g. Parakeet-CTC-1.1B): an offline-only architecture.  Its
+# defaults are the published Parakeet-CTC-1.1B (model card
+# huggingface.co/nvidia/parakeet-ctc-1.1b and NeMo's FastConformer CTC
+# recipe); the released ``tokenizer.model`` is not in the repository, so the
+# default vocabulary is a stand-in table of 1,024 pieces.
+# ---------------------------------------------------------------------------
+
+FASTCONFORMER_CTC = "fastconformer_ctc"
+PIECE_SPACE = "▁"  # SentencePiece's word-start mark
+
+# NeMo's settings that the port runs in one form only: per-feature
+# normalization, ``dw_striding`` subsampling, relative-position attention
+# over the full context with inputs scaled by sqrt(d_model) and each
+# layer's own position biases, BatchNorm in the convolution module.  A
+# config's dict states them (``to_dict``); ``from_dict`` refuses another
+# value.
+FASTCONFORMER_FIXED = {
+    "frontend": {"normalize": "per_feature"},
+    "encoder": {"subsampling": "dw_striding", "self_attention_model": "rel_pos",
+                "att_context_size": (-1, -1), "xscaling": True, "untie_biases": True,
+                "conv_norm_type": "batch_norm"},
+}
+
+
+def stand_in_vocabulary(n: int = 1024) -> tuple[str, ...]:
+    """``n`` distinct SentencePiece-style pieces, in a fixed order: each
+    letter and the apostrophe with and without the word-start mark, then
+    two- and three-letter pieces likewise.  It stands in for a released
+    tokenizer's table, which gives the same sizes and another text."""
+    chars = "abcdefghijklmnopqrstuvwxyz'"
+    pieces: list[str] = []
+    grams = list(chars)
+    while len(pieces) < n:
+        for g in grams:
+            pieces += [PIECE_SPACE + g, g]
+        grams = [g + c for g in grams for c in chars if g[-1] != c]
+    return tuple(pieces[:n])
+
+
+@dataclass(frozen=True)
+class FastConformerFrontendConfig:
+    """NeMo's ``AudioToMelSpectrogramPreprocessor`` as the model runs it:
+    pre-emphasis over the signal, a window of ``window_size`` centred in an
+    FFT of ``n_fft`` over centred frames, the power spectrum, slaney mels,
+    ``log(mel + guard)`` and each mel normalized over the call's own frames
+    (``normalize: per_feature``).  Dither is off, as at inference."""
+
+    sample_rate: int = 16000
+    window_size: float = 0.025  # seconds -> 400 samples
+    window_stride: float = 0.01  # seconds -> 160 samples
+    n_fft: int = 512
+    n_mels: int = 80
+    preemphasis_coefficient: float = 0.97
+    log_zero_guard_value: float = 2.0**-24
+
+    def __post_init__(self):
+        if self.win_length > self.n_fft:
+            raise ValueError(f"window of {self.win_length} samples exceeds n_fft {self.n_fft}")
+
+    @property
+    def win_length(self) -> int:
+        return round(self.window_size * self.sample_rate)
+
+    @property
+    def hop_length(self) -> int:
+        return round(self.window_stride * self.sample_rate)
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
+
+    def frames(self, n_samples: int) -> int:
+        """Feature frames of a signal of ``n_samples`` (centred framing)."""
+        return n_samples // self.hop_length + 1
+
+
+@dataclass(frozen=True)
+class FastConformerEncoderConfig:
+    """The FastConformer encoder: ``dw_striding`` subsampling, Macaron
+    Conformer layers with Transformer-XL relative-position attention over
+    the full context, and the CTC head's input width."""
+
+    feat_in: int = 80
+    n_layers: int = 42
+    d_model: int = 1024
+    n_heads: int = 8
+    ff_expansion_factor: int = 4
+    conv_kernel_size: int = 9
+    subsampling_factor: int = 8
+    subsampling_conv_channels: int = 256
+
+    def __post_init__(self):
+        if self.subsampling_factor < 2 or self.subsampling_factor & (self.subsampling_factor - 1):
+            raise ValueError(f"subsampling_factor {self.subsampling_factor} is not a power of 2")
+        if self.d_model % self.n_heads:
+            raise ValueError(f"d_model {self.d_model} is not a multiple of {self.n_heads} heads")
+
+    @property
+    def d_ff(self) -> int:
+        return self.d_model * self.ff_expansion_factor
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def n_subsampling_convs(self) -> int:
+        """Stride-2 convolutions of the subsampling (log2 of its factor)."""
+        return self.subsampling_factor.bit_length() - 1
+
+    @staticmethod
+    def halved(n: int) -> int:
+        """Output length of one k3, s2, p1 convolution over ``n``."""
+        return (n - 1) // 2 + 1
+
+    @property
+    def subsampled_feat(self) -> int:
+        """Mel bins left after the subsampling's convolutions (80 -> 10)."""
+        f = self.feat_in
+        for _ in range(self.n_subsampling_convs):
+            f = self.halved(f)
+        return f
+
+
+@dataclass(frozen=True)
+class FastConformerConfig:
+    """A FastConformer CTC model (defaults: Parakeet-CTC-1.1B).  Offline
+    only: the port transcribes it through ``OfflineTranscriber(...,
+    use_offline_forward=True)``; the streaming engine refuses it."""
+
+    frontend: FastConformerFrontendConfig = field(default_factory=FastConformerFrontendConfig)
+    encoder: FastConformerEncoderConfig = field(default_factory=FastConformerEncoderConfig)
+    vocabulary: tuple[str, ...] = field(default_factory=stand_in_vocabulary)
+    compute_dtype: Literal["bfloat16", "float32"] = "bfloat16"
+    architecture: str = FASTCONFORMER_CTC
+
+    # No edge padding and no time bias: a phrase's frames start at the call's.
+    padding = 0
+    mean_time_bias = 0.0
+
+    def __post_init__(self):
+        if self.architecture != FASTCONFORMER_CTC:
+            raise ValueError(f"architecture {self.architecture!r} is not {FASTCONFORMER_CTC!r}")
+
+    @property
+    def vocab_size_with_blank(self) -> int:
+        return len(self.vocabulary) + 1
+
+    @property
+    def frame_samples(self) -> int:
+        """Audio samples per output frame (1,280: 80 ms at 16 kHz)."""
+        return self.frontend.hop_length * self.encoder.subsampling_factor
+
+    @property
+    def frame_size(self) -> float:
+        """Seconds per output logprob frame."""
+        return self.frame_samples / self.frontend.sample_rate
+
+    def output_frames(self, n_samples: int) -> int:
+        """Logprob frames of a call of ``n_samples``."""
+        n = self.frontend.frames(n_samples)
+        for _ in range(self.encoder.n_subsampling_convs):
+            n = self.encoder.halved(n)
+        return n
+
+    def to_dict(self) -> dict[str, Any]:
+        d = dataclasses.asdict(self)
+        for part, fixed in FASTCONFORMER_FIXED.items():
+            d[part].update(fixed)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "FastConformerConfig":
+        d = dict(d)
+        parts = {part: dict(d.pop(part, {})) for part in FASTCONFORMER_FIXED}
+        for part, fixed in FASTCONFORMER_FIXED.items():
+            for key, value in fixed.items():
+                given = parts[part].pop(key, value)
+                if (tuple(given) if isinstance(given, list) else given) != value:
+                    raise ValueError(f"FastConformer {part}.{key}={given!r} is not supported "
+                                     f"(only {value!r})")
+        if "vocabulary" in d:
+            d["vocabulary"] = tuple(d["vocabulary"])
+        return cls(frontend=FastConformerFrontendConfig(**parts["frontend"]),
+                   encoder=FastConformerEncoderConfig(**parts["encoder"]), **d)
+
+
+ModelConfig = ToneConfig | FastConformerConfig
+
+
+def config_from_dict(d: dict[str, Any]) -> ModelConfig:
+    """The config a ``to_dict`` wrote: a ``FastConformerConfig`` where its
+    ``architecture`` says so, else a ``ToneConfig``."""
+    if d.get("architecture") == FASTCONFORMER_CTC:
+        return FastConformerConfig.from_dict(d)
+    return ToneConfig.from_dict(d)
+
+
+def require_streaming(config, who: str) -> None:
+    """Raise where ``config`` is an offline-only architecture."""
+    if isinstance(config, FastConformerConfig):
+        raise ValueError(
+            f"{who} streams T-one's chunk step; a FastConformer CTC model is offline only: "
+            "transcribe it with OfflineTranscriber(variables, config, use_offline_forward=True)")

@@ -6,6 +6,12 @@ precomputed windowed, pre-emphasized DFT basis, then the power spectrum, a
 float32 mel matmul and ``log(mel + guard)``.  The numpy builders of the
 basis and the filterbank are copies of the reference's, computed in
 float64 and stored as float32.  Features are time-major ``(B, T, n_mels)``.
+
+``log_mel_centered`` is the FastConformer's frontend (NeMo's
+``AudioToMelSpectrogramPreprocessor``): pre-emphasis over the signal, a
+window centred in a longer FFT over centred frames (``torch.stft``'s
+``center=True`` with zero padding), the same power-spectrum, mel and log
+steps in float32, then each mel normalized over the row's own frames.
 """
 
 from __future__ import annotations
@@ -15,13 +21,15 @@ import functools
 import numpy as np
 import torch
 
-from tone_tpu_torch.config import FrontendConfig
+from tone_tpu_torch.config import FastConformerFrontendConfig, FrontendConfig
 
 __all__ = [
+    "compute_centered_basis",
     "compute_forward_basis",
     "compute_mel_filterbanks",
     "FrontendConstants",
     "get_frontend_constants",
+    "log_mel_centered",
     "log_mel_offline",
     "log_mel_streaming",
 ]
@@ -106,17 +114,33 @@ def compute_mel_filterbanks(config: FrontendConfig) -> np.ndarray:
     return np.ascontiguousarray(fb, dtype=np.float32)
 
 
+def compute_centered_basis(config: FastConformerFrontendConfig) -> np.ndarray:
+    """The DFT of ``n_fft`` points over a Hann window of ``win_length``
+    centred in them (``torch.stft`` pads a shorter window on both sides),
+    shape (win_length, 2 * n_freqs): the samples outside the window take no
+    part, so a frame is the window's ``win_length`` samples alone."""
+    n_fft, win = config.n_fft, config.win_length
+    offset = (n_fft - win) // 2
+    fourier = np.fft.fft(np.eye(n_fft, dtype=np.float64))[: n_fft // 2 + 1]
+    basis = np.concatenate([fourier.real, fourier.imag], axis=0).T[offset:offset + win]
+    return np.ascontiguousarray(basis * _hann_window(win)[:, None], dtype=np.float32)
+
+
 class FrontendConstants:
     """The basis and filterbank as float32 tensors on one device."""
 
-    def __init__(self, config: FrontendConfig, device: torch.device):
+    def __init__(self, config: FrontendConfig | FastConformerFrontendConfig,
+                 device: torch.device):
         self.config = config
-        self.forward_basis = torch.from_numpy(compute_forward_basis(config)).to(device)
+        basis = (compute_centered_basis(config) if isinstance(config, FastConformerFrontendConfig)
+                 else compute_forward_basis(config))
+        self.forward_basis = torch.from_numpy(basis).to(device)
         self.filterbanks = torch.from_numpy(compute_mel_filterbanks(config)).to(device)
 
 
 @functools.lru_cache(maxsize=8)
-def get_frontend_constants(config: FrontendConfig, device: torch.device) -> FrontendConstants:
+def get_frontend_constants(config: FrontendConfig | FastConformerFrontendConfig,
+                           device: torch.device) -> FrontendConstants:
     return FrontendConstants(config, device)
 
 
@@ -182,3 +206,46 @@ def log_mel_streaming(
     state_next = waveform[:, -cfg.state_size:]
     frames = _frame(waveform, cfg.win_length, cfg.hop_length)
     return _log_mel_from_frames(frames, constants), state_next
+
+
+def log_mel_centered(
+    waveform: torch.Tensor,
+    lengths: torch.Tensor,
+    constants: FrontendConstants,
+) -> torch.Tensor:
+    """The FastConformer's features of a padded batch, each row as if it
+    were alone (``constants`` of a ``FastConformerFrontendConfig``).
+
+    Pre-emphasis ``y[0] = x[0]``, ``y[n] = x[n] - c * x[n - 1]``, zero at
+    and past each row's length; frame ``t`` is centred on sample
+    ``t * hop`` (zeros before the signal); the power spectrum, slaney mels
+    and ``log(mel + guard)`` in float32; then each mel of a row minus its
+    mean over the row's ``length // hop + 1`` frames, over their standard
+    deviation (``n - 1`` in its denominator) plus 1e-5, and 0 past them.
+
+    Args:
+        waveform: float32 waveform in [-1, 1], shape (B, T_samples).
+        lengths: (B,) valid samples, on the waveform's device.
+
+    Returns:
+        (features (B, T_samples // hop + 1, n_mels) float32, each row's
+        frames (B,)).
+    """
+    cfg = constants.config
+    b, n = waveform.shape
+    n_frames = cfg.frames(n)
+    c = cfg.preemphasis_coefficient
+    pre = torch.cat([waveform[:, :1], waveform[:, 1:] - c * waveform[:, :-1]], dim=1)
+    pre = pre.masked_fill(torch.arange(n, device=pre.device)[None] >= lengths[:, None], 0.0)
+    left = cfg.n_fft // 2 - (cfg.n_fft - cfg.win_length) // 2
+    pre = torch.nn.functional.pad(pre, (left, cfg.win_length - left))
+    frames = _frame(pre, cfg.win_length, cfg.hop_length)[:, :n_frames]
+    feats = _log_mel_from_frames(frames, constants)                     # (B, T, n_mels)
+    frame_lens = torch.div(lengths, cfg.hop_length, rounding_mode="floor") + 1
+    valid = (torch.arange(n_frames, device=feats.device)[None] < frame_lens[:, None])[..., None]
+    count = frame_lens[:, None].to(torch.float32)
+    mean = torch.where(valid, feats, 0.0).sum(dim=1) / count
+    centred = feats - mean[:, None]
+    var = torch.where(valid, centred, 0.0).square().sum(dim=1) / (count - 1.0).clamp(min=1.0)
+    normed = centred / (var.sqrt() + 1e-5)[:, None]
+    return normed.masked_fill(~valid, 0.0), frame_lens

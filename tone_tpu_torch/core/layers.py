@@ -59,7 +59,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -333,14 +333,19 @@ def _conv_bias(y: torch.Tensor, p: Params, w: torch.Tensor, shape: tuple[int, ..
 
 
 def conv2d(p: Params, x: torch.Tensor, stride: tuple[int, int],
-           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Valid 2D convolution, NCHW input / OIHW weights."""
+           compute_dtype=torch.bfloat16, padding: int | tuple[int, int] = 0,
+           groups: int = 1) -> torch.Tensor:
+    """2D convolution, NCHW input / OIHW weights: valid, or with ``padding``
+    zeros on both sides of each spatial axis; ``groups`` as in
+    ``F.conv2d`` (a depthwise convolution has as many as channels)."""
     x, w = x.to(compute_dtype), p["w"].to(compute_dtype)
     # One input channel (the subsampling's first convolution) stays widened:
     # cuDNN's bf16 kernel for it took 7.17 ms on the H100 at the bulk batch's
     # 16 x 6,250 frames of 64 mels, the float32 one 3.03 ms.
-    tc = w.shape[1] > 1 and _on_tensor_cores(x, w)
-    y = F.conv2d(x, w, stride=stride) if tc else F.conv2d(x.float(), w.float(), stride=stride)
+    tc = x.shape[1] > 1 and _on_tensor_cores(x, w)
+    if not tc:
+        x, w = x.float(), w.float()
+    y = F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
     return _conv_bias(y, p, w, (1, -1, 1, 1), compute_dtype, tc)
 
 
@@ -576,3 +581,109 @@ def mhsa_blocked(
     ctx = ctx.reshape(b, n_heads, tp_len, d_head).transpose(1, 2)[:, :t]
     return linear(p["linear_out"], ctx.reshape(b, t, n_heads * d_head), compute_dtype,
                   reduce), scores
+
+
+# Score elements (float32) of one query block of the relative-position
+# attention: ``rel_mhsa_blocked`` cuts its queries so that a block's
+# (B, H, Q, Q + T - 1) position scores stay near this (512 MB).
+REL_SCORE_BLOCK_ELEMENTS = 1 << 27
+
+
+def rel_blocks(lengths: Sequence[int], n_heads: int) -> tuple[int, list[tuple[int, int, int, int]]]:
+    """How ``rel_mhsa_blocked`` cuts a batch whose rows hold ``lengths``
+    valid frames: (keys, [(i0, i1, lo, hi)]).  Keys are the longest row's
+    frames rounded up to a multiple of 8 (every product then has aligned
+    rows; the extra keys are masked).  Queries ``i0 .. i1 - 1`` of each
+    block are computed for rows ``lo .. hi - 1``, the rows that hold a frame
+    there (a row whose frames end before the block is skipped; rows sorted
+    by length skip exactly those).  A block has the most queries, a power of
+    two from 16, whose position scores fit ``REL_SCORE_BLOCK_ELEMENTS``."""
+    b, longest = len(lengths), max(lengths)
+    keys = -(-longest // 8) * 8
+    step = 16
+    while step < longest and b * n_heads * 2 * step * (2 * step + keys + 7) <= \
+            REL_SCORE_BLOCK_ELEMENTS:
+        step *= 2
+    blocks = []
+    for i0 in range(0, longest, step):
+        rows = [r for r, n in enumerate(lengths) if n > i0]
+        blocks.append((i0, min(i0 + step, longest), rows[0], rows[-1] + 1))
+    return keys, blocks
+
+
+def rel_mhsa_blocked(
+    p: Params,
+    x: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    n_heads: int,
+    lengths: torch.Tensor,
+    host_lengths: Sequence[int],
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Transformer-XL relative-position attention over the full context
+    (NeMo's ``RelPositionMultiHeadAttention``, the FastConformer's), in
+    blocks of queries (``rel_blocks``).
+
+    The score of query ``i`` and key ``j`` is
+    ``((q_i + u) . k_j + (q_i + v) . p_{i-j}) / sqrt(d_head)`` with
+    ``p_r = linear_pos(PE(r))`` (no bias) and the per-layer biases ``u`` =
+    ``pos_bias_u``, ``v`` = ``pos_bias_v`` (H, d_head); ``q + u`` and
+    ``q + v`` are summed in float32, divided by ``sqrt(d_head)`` there and
+    rounded once to the compute dtype, so the float32 products are the
+    scores.  A block of queries ``i0 .. i1 - 1`` takes the positions it
+    needs, ``i1 - 1`` down to ``i0 - (keys - 1)``; its product with them
+    is shifted into (queries, keys) by a strided view
+    (``(q_i + v) . p_{i-j}`` sits at column ``(i1 - 1 - i) + j``), not
+    copied.  Keys at or past a row's length take -1e4 before the float32
+    softmax; the weights are rounded to the compute dtype before the
+    product with V.  Queries past the longest row, and the rows that
+    ``rel_blocks`` skips in a block, are not computed: those output rows
+    are zero.  Products run on ``_product``.
+
+    Args:
+        x: (B, T, D) the layer's normed input.
+        pos: (2 * max(host_lengths) - 1, D) the encodings of the relative
+            positions ``max - 1`` down to ``-(max - 1)``.
+        lengths: (B,) valid frames, on ``x``'s device.
+        host_lengths: the same on the host.
+
+    Returns:
+        (B, T, D) in the compute dtype.
+    """
+    b, t, d = x.shape
+    d_head = d // n_heads
+    tq = max(host_lengths)
+    tk, blocks = rel_blocks(host_lengths, n_heads)
+    xs = x[:, :tq]
+
+    def heads(proj):  # (B, Tq, D) -> (B, H, Tk, dh), the keys past Tq zero
+        proj = proj.reshape(b, tq, n_heads, d_head).transpose(1, 2)
+        return F.pad(proj, (0, 0, 0, tk - tq)).contiguous()
+
+    q = linear(p["linear_q"], xs, compute_dtype).reshape(b, tq, n_heads, d_head).float()
+    k_t = heads(linear(p["linear_k"], xs, compute_dtype)).transpose(-1, -2)   # (B, H, dh, Tk)
+    v = heads(linear(p["linear_v"], xs, compute_dtype))
+    # Positions tq - 1 down to -(tq - 1), then zeros for the padded keys and
+    # the aligned rows of each block's position product.
+    pe = linear(p["linear_pos"], F.pad(pos, (0, 0, 0, tk - tq + 7)).to(compute_dtype),
+                compute_dtype).reshape(tq + tk + 6, n_heads, d_head).transpose(0, 1)
+    scale = math.sqrt(d_head)
+    q_u = ((q + p["pos_bias_u"].float()) / scale).to(compute_dtype).transpose(1, 2)
+    q_v = ((q + p["pos_bias_v"].float()) / scale).to(compute_dtype).permute(2, 0, 1, 3)
+    masked = (torch.arange(tk, device=x.device)[None] >= lengths[:, None])[:, None, None]
+    out = []
+    for i0, i1, lo, hi in blocks:
+        nq, rows = i1 - i0, hi - lo
+        w = -(-(nq + tk - 1) // 8) * 8                                      # aligned rows
+        scores = _mm(q_u[lo:hi, :, i0:i1], k_t[lo:hi])                       # (rows, H, nq, Tk)
+        raw = _mm(q_v[:, lo:hi, i0:i1].reshape(n_heads, rows * nq, d_head),
+                  pe[:, tq - i1:tq - i1 + w].transpose(-1, -2))              # (H, rows*nq, w)
+        bd = raw.as_strided((rows, n_heads, nq, tk), (nq * w, rows * nq * w, w - 1, 1),
+                            raw.storage_offset() + nq - 1)
+        scores = scores.add_(bd).masked_fill_(masked[lo:hi], -10000.0)
+        attn = torch.softmax(scores, dim=-1).to(compute_dtype)
+        ctx = _mm(attn, v[lo:hi]).to(compute_dtype)                          # (rows, H, nq, dh)
+        out.append(F.pad(ctx, (0, 0, 0, 0, 0, 0, lo, b - hi)))
+    ctx = torch.cat(out, dim=2).transpose(1, 2).reshape(b, tq, d)
+    return F.pad(linear(p["linear_out"], ctx, compute_dtype), (0, 0, 0, t - tq))

@@ -23,7 +23,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
-from tone_tpu_torch.config import LABELS
+from tone_tpu_torch.config import LABELS, PIECE_SPACE
 
 if TYPE_CHECKING:
     from typing import Sequence
@@ -47,27 +47,39 @@ class DecoderType(Enum):
     BEAM_SEARCH = "beam_search"
 
 
-def _validate_logprobs(logprobs) -> None:
+def _validate_logprobs(logprobs, n_classes: int = len(LABELS) + 1) -> None:
     if not isinstance(logprobs, np.ndarray):
         raise TypeError(
             f"Incorrect 'logprobs' type: expected np.ndarray, but got {type(logprobs)}")
-    if logprobs.shape[1:] != (len(LABELS) + 1,):
+    if logprobs.shape[1:] != (n_classes,):
         raise ValueError(
-            f"Shape of 'logprobs' must be (L, {len(LABELS) + 1}), but got {logprobs.shape}")
+            f"Shape of 'logprobs' must be (L, {n_classes}), but got {logprobs.shape}")
     if logprobs.dtype != np.float32:
         raise ValueError(
             f"Incorrect dtype of 'logprobs': expected np.float32, but got {logprobs.dtype}")
 
 
 class GreedyCTCDecoder:
-    """Greedy CTC decoding: argmax, collapse repeats, drop blanks."""
+    """Greedy CTC decoding: argmax, collapse repeats, drop blanks.
+
+    ``labels``: T-one's characters (a string), or a subword vocabulary (a
+    sequence of SentencePiece pieces, ``config.FastConformerConfig``'s),
+    whose pieces are joined with the word-start mark read as a space."""
+
+    def __init__(self, labels: str | Sequence[str] = LABELS) -> None:
+        self.labels = labels
+        self._pieces = not isinstance(labels, str)
 
     def forward(self, logprobs: "npt.NDArray[np.float32]") -> str:
         """Decode (L, vocab+1) logprobs to text."""
-        _validate_logprobs(logprobs)
+        labels = self.labels
+        _validate_logprobs(logprobs, len(labels) + 1)
         tokens = logprobs.argmax(axis=-1)
         collapsed = (token for token, _ in groupby(tokens.tolist()))
-        return "".join(LABELS[t] for t in collapsed if t < len(LABELS)).strip()
+        text = "".join(labels[t] for t in collapsed if t < len(labels))
+        if self._pieces:
+            text = text.replace(PIECE_SPACE, " ")
+        return text.strip()
 
 
 def _native_lm_path(model_path: Path) -> Path:

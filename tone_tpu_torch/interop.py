@@ -30,7 +30,13 @@ from typing import Any, Mapping
 
 import torch
 
-from tone_tpu_torch.config import EncoderConfig, FrontendConfig, ToneConfig
+from tone_tpu_torch.config import (
+    EncoderConfig,
+    FastConformerConfig,
+    FrontendConfig,
+    ModelConfig,
+    ToneConfig,
+)
 
 
 def _cpu(x) -> torch.Tensor:
@@ -91,15 +97,53 @@ def _split_ff(ff: Mapping) -> Mapping:
     }
 
 
-def to_torch_state_dict(variables: Mapping[str, Any], config: ToneConfig | None = None,
+def to_fastconformer_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A FastConformer's variables (``core.fastconformer``) as NeMo's
+    ``EncDecCTCModelBPE`` state_dict of contiguous CPU tensors (dtypes
+    kept): the inverse of ``checkpoint.convert_fastconformer_state_dict``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    pre = params["encoder"]["pre_encode"]
+    out: dict[str, torch.Tensor] = {}
+    _put_conv(out, "encoder.pre_encode.conv.0", pre["conv0"])
+    for i, stage in enumerate(pre["stages"]):
+        _put_conv(out, f"encoder.pre_encode.conv.{2 + 3 * i}", stage["dw"])
+        _put_conv(out, f"encoder.pre_encode.conv.{3 + 3 * i}", stage["pw"])
+    _put_lin(out, "encoder.pre_encode.out", pre["out"])
+    for i, (layer, lstats) in enumerate(zip(params["encoder"]["layers"], stats["layers"])):
+        pfx = f"encoder.layers.{i}"
+        for n in ("1", "2"):
+            _put_ln(out, f"{pfx}.norm_feed_forward{n}", layer[f"norm_ff{n}"])
+            _put_lin(out, f"{pfx}.feed_forward{n}.linear1", layer[f"ff{n}"]["linear1"])
+            _put_lin(out, f"{pfx}.feed_forward{n}.linear2", layer[f"ff{n}"]["linear2"])
+        att = layer["att"]
+        _put_ln(out, f"{pfx}.norm_self_att", layer["norm_att"])
+        for n in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            _put_lin(out, f"{pfx}.self_attn.{n}", att[n])
+        out[f"{pfx}.self_attn.pos_bias_u"] = _cpu(att["pos_bias_u"])
+        out[f"{pfx}.self_attn.pos_bias_v"] = _cpu(att["pos_bias_v"])
+        _put_ln(out, f"{pfx}.norm_conv", layer["norm_conv"])
+        _put_pw_conv1d(out, f"{pfx}.conv.pointwise_conv1", layer["conv"]["pw1"])
+        _put_conv(out, f"{pfx}.conv.depthwise_conv", layer["conv"]["dw"])
+        _put_bn(out, f"{pfx}.conv.batch_norm", layer["conv"]["bn"], lstats["conv_bn"])
+        _put_pw_conv1d(out, f"{pfx}.conv.pointwise_conv2", layer["conv"]["pw2"])
+        _put_ln(out, f"{pfx}.norm_out", layer["norm_out"])
+    _put_pw_conv1d(out, "decoder.decoder_layers.0", params["head"])
+    return out
+
+
+def to_torch_state_dict(variables: Mapping[str, Any], config: ModelConfig | None = None,
                         prefix: str = "") -> dict[str, torch.Tensor]:
     """The variables as a reference-named state_dict of contiguous CPU
-    tensors (dtypes kept; a merged ``lin12`` is split in float32).
+    tensors (dtypes kept; a merged ``lin12`` is split in float32); NeMo's
+    names for a ``FastConformerConfig``.
 
     Args:
         prefix: "" for a bare ``Tone`` state_dict, "tone." for ``ToneForCTC``.
     """
-    del config  # the layout follows the variables, as in the JAX package
+    if isinstance(config, FastConformerConfig):
+        out = to_fastconformer_state_dict(variables)
+        return {prefix + k: v for k, v in out.items()}
+    # otherwise the layout follows the variables, as in the JAX package
     params = variables["params"]
     stats = variables["batch_stats"]
     enc = params["encoder"]
@@ -151,7 +195,7 @@ def to_torch_state_dict(variables: Mapping[str, Any], config: ToneConfig | None 
     return out
 
 
-def save_torch_checkpoint(path, variables, config: ToneConfig | None = None,
+def save_torch_checkpoint(path, variables, config: ModelConfig | None = None,
                           prefix: str = "") -> None:
     """Write the state_dict as .safetensors (readable by the reference with
     ``load_file`` + ``load_state_dict``, and by both packages' loaders)."""

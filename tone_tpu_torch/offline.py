@@ -9,6 +9,14 @@ split into phrases and decoded.  Two forwards give the same function:
 * ``use_offline_forward=True``: ``core.model.apply_offline``, the
   full-sequence forward whose chunk-simulating masks reproduce the scan.
 
+A ``FastConformerConfig`` (an offline-only architecture) runs
+``core.fastconformer.apply_fastconformer`` and needs
+``use_offline_forward=True``: its rows carry no edge padding, are padded
+with zeros to a bucketed multiple of one output frame's samples, and go to
+the forward with their lengths, so that it computes each row as if alone;
+its phrases are split at the blank alone and decoded with its vocabulary;
+frames are 80 ms.  The mesh and word times are T-one's only.
+
 Utterances are sorted by length and padded to a bucketed number of chunks;
 the zero chunks that pad a row are processed as audio, as the JAX
 package's are, so they decide where the last phrase ends.
@@ -42,14 +50,15 @@ batch's index in the call as their id, and the counts
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from tone_tpu_torch import profiling
 from tone_tpu_torch.acoustic import cast_params_for_inference
-from tone_tpu_torch.config import ToneConfig
+from tone_tpu_torch.config import LABELS, FastConformerConfig, ModelConfig
+from tone_tpu_torch.core.fastconformer import apply_fastconformer
 from tone_tpu_torch.core.model import apply_offline, apply_streaming, init_streaming_state
 from tone_tpu_torch.device import resolve_device
 from tone_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, replicate
@@ -59,13 +68,27 @@ from tone_tpu_torch.splitter import StreamingLogprobSplitter
 __all__ = ["OfflineTranscriber"]
 
 
+@dataclass(frozen=True)
+class _Model:
+    """What the transcriber does differently for each architecture, chosen
+    once from its config (``OfflineTranscriber._choose_model``)."""
+
+    unit_frames: int  # logprob frames per unit of a row's length (the rows' units)
+    assemble: Callable  # (idx, audios) -> (rows' units, each device's batch, queued)
+    # The transcriber's method (variables, a device's batch) -> logprobs, by
+    # name: looked up at each launch, so that one replaced on the instance runs.
+    forward: str
+    splitter: StreamingLogprobSplitter
+    labels: str | tuple[str, ...]  # the default greedy decoder's vocabulary
+
+
 @dataclass
 class OfflineTranscriber:
     """Batched utterance transcription on one device, or on the data devices
     of a mesh."""
 
     variables: dict
-    config: ToneConfig
+    config: ModelConfig
     decoder: object = None  # GreedyCTCDecoder-compatible; default greedy
     batch_size: int = 16
     bucket_samples: int = 8 * 2400  # pad lengths up to multiples of this
@@ -75,6 +98,7 @@ class OfflineTranscriber:
     device: str | torch.device | None = None  # cuda unless the caller asks for the CPU
 
     def __post_init__(self):
+        self._model = self._choose_model()
         if self.mesh is None:
             devices = [resolve_device(self.device)]
         else:
@@ -91,11 +115,27 @@ class OfflineTranscriber:
         if self.decoder is None:
             from tone_tpu_torch.decoder import GreedyCTCDecoder
 
-            self.decoder = GreedyCTCDecoder()
+            self.decoder = GreedyCTCDecoder(self._model.labels)
         self._shards = list(zip(devices, replicate(
             cast_params_for_inference(self.variables, self.config), devices)))
         self.variables = self._shards[0][1]
-        self._splitter = StreamingLogprobSplitter()
+
+    def _choose_model(self) -> _Model:
+        cfg = self.config
+        if isinstance(cfg, FastConformerConfig):
+            if not self.use_offline_forward:
+                raise ValueError("a FastConformer CTC model has no chunk scan (T-one's "
+                                 "streaming step): pass use_offline_forward=True")
+            if self.mesh is not None or self.word_timestamps:
+                raise ValueError("OfflineTranscriber: the mesh and word times run T-one only")
+            # rows in output frames, split at the blank alone
+            return _Model(1, self._assemble_calls, "_fastconformer_forward",
+                          StreamingLogprobSplitter(cfg.vocab_size_with_blank, silence_classes=1),
+                          cfg.vocabulary)
+        # rows in chunks, split at the space and the blank
+        return _Model(cfg.encoder.chunk_size, self._assemble_chunks,
+                      "_offline_forward" if self.use_offline_forward else "_chunk_scan",
+                      StreamingLogprobSplitter(), LABELS)
 
     def _chunk_scan(self, variables, chunks: torch.Tensor) -> torch.Tensor:
         """(B, n_chunks, chunk_samples) -> (B, n_chunks * frames, V)."""
@@ -113,6 +153,11 @@ class OfflineTranscriber:
         logprobs, _, _ = apply_offline(variables, self.config, chunks.reshape(b, n * c))
         return logprobs
 
+    def _fastconformer_forward(self, variables, batch) -> torch.Tensor:
+        """((B, T_samples) audio, its host lengths) -> (B, frames, V)."""
+        audio, lengths = batch
+        return apply_fastconformer(variables, self.config, audio, lengths)[0]
+
     def transcribe(self, audios: Sequence[np.ndarray]) -> list[list[TextPhrase]]:
         """Transcribe utterances (int16-range integer arrays); order kept."""
         results: list[list[TextPhrase] | None] = [None] * len(audios)
@@ -128,7 +173,7 @@ class OfflineTranscriber:
         def finish(launched):
             idx, row_chunks, logprobs = self._wait(launched)
             for row, i in enumerate(idx):
-                out[i] = logprobs[row, :row_chunks[row] * self.config.encoder.chunk_size]
+                out[i] = logprobs[row, :row_chunks[row] * self._model.unit_frames]
 
         self._pipelined(audios, finish)
         return out  # type: ignore[return-value]
@@ -151,13 +196,13 @@ class OfflineTranscriber:
         logprobs to the host; returns (idx, row_chunks, host logprobs, copy
         events, batch) without waiting."""
         with profiling.span("offline.assemble", batch):
-            row_chunks, chunks = self._assemble(idx, audios)
+            row_chunks, chunks = self._model.assemble(idx, audios)
         with profiling.span("offline.forward", batch):
-            forward = self._offline_forward if self.use_offline_forward else self._chunk_scan
+            forward = getattr(self, self._model.forward)
             logprobs = [forward(variables, c) for (_, variables), c in zip(self._shards, chunks)]
             if self.device.type != "cuda":
                 return idx, row_chunks, torch.cat(logprobs), [], batch
-            per = chunks[0].shape[0]
+            per = logprobs[0].shape[0]
             host = torch.empty((per * len(chunks), *logprobs[0].shape[1:]), dtype=torch.float32,
                                pin_memory=True)
             events = []
@@ -167,7 +212,7 @@ class OfflineTranscriber:
                 events[-1].record(torch.cuda.current_stream(lp.device))
         return idx, row_chunks, host, events, batch
 
-    def _assemble(self, idx, audios) -> tuple[list[int], list[torch.Tensor]]:
+    def _assemble_chunks(self, idx, audios) -> tuple[list[int], list[torch.Tensor]]:
         """(row_chunks, each device's rows of the padded chunks, queued to it)."""
         cfg = self.config
         pad = cfg.padding
@@ -193,6 +238,29 @@ class OfflineTranscriber:
         return row_chunks, [chunks[k * per:(k + 1) * per].to(dev, non_blocking=True)
                             for k, (dev, _) in enumerate(self._shards)]
 
+    def _assemble_calls(self, idx, audios) -> tuple[list[int], list[tuple]]:
+        """A FastConformer batch: (each row's output frames, [((B, samples)
+        int32 audio queued to the device, the rows' host lengths)]); rows
+        padded with zeros to a bucketed multiple of an output frame's
+        samples."""
+        cfg = self.config
+        unit = cfg.frame_samples
+        bucket_units = max(self.bucket_samples // unit, 1)
+        lengths = np.array([len(audios[i]) for i in idx], np.int64)
+        units = max(-(-int(lengths.max()) // unit), 1)
+        n_units = -(-units // bucket_units) * bucket_units
+        audio_arr = np.zeros((len(idx), n_units * unit), np.int32)
+        for row, i in enumerate(idx):
+            audio_arr[row, :lengths[row]] = audios[i]
+        audio = torch.from_numpy(audio_arr)
+        if self.device.type == "cuda":
+            audio = audio.pin_memory()
+        if profiling.recording():
+            profiling.count("offline.audio_samples", int(lengths.sum()))
+            profiling.count("offline.padded_samples", audio_arr.size)
+        row_frames = [cfg.output_frames(int(n)) for n in lengths]
+        return row_frames, [(audio.to(self.device, non_blocking=True), lengths)]
+
     @staticmethod
     def _wait(launched):
         """(idx, row_chunks, numpy logprobs) of a launched batch, once its
@@ -207,11 +275,11 @@ class OfflineTranscriber:
         """Split and decode a launched batch's logprobs."""
         idx, row_chunks, logprobs = self._wait(launched)
         batch = launched[-1]
-        frames = self.config.encoder.chunk_size
+        frames = self._model.unit_frames
         split = []
         with profiling.span("offline.split", batch):
             for row, i in enumerate(idx):
-                phrases, _ = self._splitter.forward(logprobs[row, :row_chunks[row] * frames],
+                phrases, _ = self._model.splitter.forward(logprobs[row, :row_chunks[row] * frames],
                                                     None, is_last=True)
                 split.append((i, phrases))
 

@@ -28,7 +28,7 @@ import torch
 
 from tone_tpu_torch import profiling
 from tone_tpu_torch.acoustic import cast_params_for_inference
-from tone_tpu_torch.config import ToneConfig
+from tone_tpu_torch.config import ToneConfig, require_streaming
 from tone_tpu_torch.core.model import (
     StreamingState,
     apply_streaming,
@@ -60,6 +60,7 @@ class StreamArena:
                 split over the mesh's data devices.  ``device`` is then the
                 first of them.
         """
+        require_streaming(config, "StreamArena")
         self.config = config
         self.n_slots = n_slots
         if sharding is None:

@@ -34,7 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from tone_tpu_torch import profiling
-from tone_tpu_torch.config import ToneConfig
+from tone_tpu_torch.config import ToneConfig, require_streaming
 from tone_tpu_torch.decoder import (
     BeamSearchCTCDecoder,
     DeviceBeamSearchCTCDecoder,
@@ -173,6 +173,7 @@ class MultiStreamEngine:
         (``StreamArena``, ``parallel.mesh.arena_shardings``); the engine's
         device, on which the device decoder and the interim beam arena run,
         is then the first data device."""
+        require_streaming(config, "MultiStreamEngine")
         if decoder is not None and not callable(getattr(decoder, "forward", None)):
             raise TypeError(f"decoder {type(decoder).__name__} has no forward(logprobs)")
         if nbest and (nbest < 0 or nbest > self.MAX_NBEST):

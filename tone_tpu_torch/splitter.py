@@ -1,7 +1,8 @@
 """Silence-based phrase segmentation over the streaming CTC logprob stream.
 
 Behavioral parity with the reference ``StreamingLogprobSplitter``
-(tone/logprob_splitter.py): a frame is speech iff P(blank) + P(space) <= 0.9;
+(tone/logprob_splitter.py): a frame is speech iff P(blank) + P(space) <= 0.9
+(for a subword vocabulary, P(blank) <= 0.9: ``silence_classes``);
 a phrase ends after >= 20 consecutive silence frames (600 ms); phrases longer
 than 2000 frames (60 s) are force-split; emitted phrase logprobs are expanded
 by 3 frames on each side; unconsumed logprobs plus a global frame offset are
@@ -62,6 +63,14 @@ class StreamingLogprobSplitter:
     SPEECH_EXPAND_SIZE = 3  # frames
     MAX_PHRASE_DURATION = 2000  # frames (60 s)
 
+    def __init__(self, n_classes: int = 35, silence_classes: int = 2) -> None:
+        """``n_classes``: the logprobs' classes, the vocabulary and the blank
+        (T-one's 35).  ``silence_classes``: how many of the last classes are
+        silence: T-one's space and blank; for a subword vocabulary, whose
+        pieces carry their own word-start mark, the blank alone."""
+        self.n_classes = n_classes
+        self.silence_classes = silence_classes
+
     def _phrase_spans(self, is_speech: "npt.NDArray[np.bool_]", *,
                       is_last: bool = False) -> "Iterator[tuple[int, int]]":
         """Yield (start, end) spans of completed phrases.
@@ -113,9 +122,9 @@ class StreamingLogprobSplitter:
         if not isinstance(logprobs, np.ndarray):
             raise TypeError(
                 f"Incorrect 'logprobs' type: expected np.ndarray, but got {type(logprobs)}")
-        if logprobs.shape[1:] != (35,):
+        if logprobs.shape[1:] != (self.n_classes,):
             raise ValueError(
-                f"Shape of 'logprobs' must be (L, 35), but got {logprobs.shape}")
+                f"Shape of 'logprobs' must be (L, {self.n_classes}), but got {logprobs.shape}")
         if logprobs.dtype != np.float32:
             raise ValueError(
                 f"Incorrect dtype of 'logprobs': expected np.float32, but got {logprobs.dtype}")
@@ -129,9 +138,10 @@ class StreamingLogprobSplitter:
 
         expand = self.SPEECH_EXPAND_SIZE
         logprobs = np.concatenate((state.past_logprobs, logprobs), axis=-2)
-        # Silence = high combined probability of the last two classes
-        # (space, blank).
-        is_speech = np.exp(logprobs[..., -2:]).sum(axis=-1) <= self.SILENCE_THRESHOLD
+        # Silence = high combined probability of the last classes (T-one's
+        # space and blank).
+        is_speech = (np.exp(logprobs[..., -self.silence_classes:]).sum(axis=-1)
+                     <= self.SILENCE_THRESHOLD)
 
         if not is_last and not is_speech.any():
             # Fast path for all-silence windows (the common telephony case —
