@@ -622,6 +622,66 @@ def test_tiny_transcriber_on_card_matches_cpu(cuda, offline_forward):
     assert len(phrases) == 3 and all(phrases)
 
 
+def test_staging_ring_on_card_waits_for_its_upload(cuda):
+    """A staging buffer taken again while its upload still waits behind a
+    sleeping kernel: ``take`` returns only once the upload is done, so the
+    device receives the first contents."""
+    from tone_tpu_torch.offline import _HostRing, _record_event
+
+    ring = _HostRing(pinned=True)
+    first = ring.take(0, 1 << 20, torch.int16)
+    first.copy_(torch.arange(1 << 20, dtype=torch.int32).to(torch.int16))
+    torch.cuda._sleep(200_000_000)   # about 0.1 s at the card's clocks
+    sent = first.to(cuda, non_blocking=True)
+    events = _record_event(cuda)
+    ring.guard(0, events)
+    assert not events[0].query()     # still queued behind the sleep
+    again = ring.take(0, 1 << 20, torch.int16)
+    assert events[0].query() and again.data_ptr() == first.data_ptr()
+    again.fill_(-1)
+    torch.cuda.synchronize()
+    assert torch.equal(sent.cpu(), torch.arange(1 << 20, dtype=torch.int32).to(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_staged_assembly_on_card_equals_the_host_padded_one(cuda, dtype):
+    """Two different jobs back to back, twice, with every forward behind a
+    sleeping kernel, so that the host refills the staging and logprob rings
+    while the card still has earlier batches queued: the logprobs and texts
+    equal the synchronous host-padded assembly's bit for bit, and the second
+    pass allocates no buffer."""
+    from offline_assembly_reference import use_reference_assembly
+
+    cfg, variables = _tiny_bf16()
+    rng = np.random.default_rng(5)
+    jobs = [[rng.integers(-20000, 20000, n).astype(dtype) for n in lengths]
+            for lengths in ((5000, 7200, 1200, 30000, 16000), (2000, 41000, 9000, 12000))]
+    card, ref = (OfflineTranscriber(variables, cfg, batch_size=2, device=cuda,
+                                    use_offline_forward=True) for _ in range(2))
+    use_reference_assembly(ref)
+    forward = card._offline_forward
+
+    def slowed(variables, chunks):
+        torch.cuda._sleep(20_000_000)
+        return forward(variables, chunks)
+    card._offline_forward = slowed
+
+    def one_pass():
+        for job in jobs:
+            for got, want in zip(card.logprobs(job), ref.logprobs(job)):
+                assert got.shape == want.shape and np.array_equal(got, want)
+            texts = [[p.text for p in u] for u in card.transcribe(job)]
+            assert texts == [[p.text for p in u] for u in ref.transcribe(job)]
+
+    one_pass()
+    t0 = time.monotonic_ns()
+    with profiling.record():
+        one_pass()
+    counts = [e for e in profiling.events(t0, time.monotonic_ns())
+              if isinstance(e, profiling.Count) and e.name == "offline.staging_allocs"]
+    assert counts == []
+
+
 def _tied_logprobs(seed, b=4, t=300):
     """Logprobs on a coarse grid with whole flat frames: exact ties."""
     rng = np.random.default_rng(seed)

@@ -160,33 +160,68 @@ def test_spans_nest_with_their_ids_under_a_cpu_profiler():
         assert ticks[3].start_ns <= wait.start_ns <= wait.end_ns <= work.start_ns
 
 
-def test_counters_are_the_unpadded_and_computed_samples():
+def _padded_samples():
+    """The samples the tiny transcriber computes for ``_audios()``, worked
+    out apart from it: rows sorted by length in batches of two, each padded
+    by the config's padding on both sides and to the batch's longest row, in
+    whole buckets of eight chunks."""
     tc, _ = _tiny()
     chunk, pad = tc.audio_chunk_samples, tc.padding
-    # Worked out apart from the transcriber: rows sorted by length in
-    # batches of two, each padded by the config's padding on both sides and
-    # to the batch's longest row, in whole buckets of eight chunks.
     rows = sorted(LENGTHS)
     padded = 0
     for batch in (rows[:2], rows[2:]):
         n_chunks = max(-(-(n + 2 * pad) // chunk) for n in batch)
         padded += len(batch) * -(-n_chunks // 8) * 8 * chunk
-    train_batches = [_train_batch(k) for k in range(2)]
+    return padded
 
+
+def _counts(run):
+    """{name: [n, ...]} of the counts recorded while ``run()`` runs under
+    ``record()``."""
     t0 = time.monotonic_ns()
     with profiling.record():
-        _transcriber().transcribe(_audios())
-        _train(2)
+        run()
     counts: dict = {}
     for e in profiling.events(t0, time.monotonic_ns()):
         if isinstance(e, profiling.Count):
             counts.setdefault(e.name, []).append(e.n)
+    return counts
+
+
+def test_counters_are_the_unpadded_and_computed_samples():
+    rows = sorted(LENGTHS)
+    padded = _padded_samples()
+    train_batches = [_train_batch(k) for k in range(2)]
+
+    counts = _counts(lambda: (_transcriber().transcribe(_audios()), _train(2)))
     assert counts["offline.audio_samples"] == [sum(rows[:2]), sum(rows[2:])]
     assert sum(counts["offline.padded_samples"]) == padded
     assert counts["train.audio_samples"] == [int(b["input_lengths"].sum())
                                              for b in train_batches]
     assert counts["train.padded_samples"] == [b["input_values"].size for b in train_batches]
     assert not profiling.recording()
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_upload_counters_are_the_rows_own_bytes(dtype):
+    audios = [a.astype(dtype) for a in _audios()]
+    rows = sorted(LENGTHS)
+    tr = _transcriber()
+    counts = _counts(lambda: tr.transcribe(audios))
+    # Only the calls' own samples are sent, in their own width (int16 calls
+    # as int16, others as int32), batch by batch.
+    width = np.dtype(dtype).itemsize
+    assert counts["offline.upload_bytes"] == [sum(rows[:2]) * width, sum(rows[2:]) * width]
+    assert counts["offline.audio_samples"] == [sum(rows[:2]), sum(rows[2:])]
+    assert sum(counts["offline.padded_samples"]) == _padded_samples()
+    assert sum(counts["offline.staging_allocs"]) == 2   # a buffer for each batch
+    again = _counts(lambda: tr.transcribe(audios))
+    assert again["offline.upload_bytes"] == counts["offline.upload_bytes"]
+    assert "offline.staging_allocs" not in again        # both reused
+    # Off: nothing is recorded.
+    t0 = time.monotonic_ns()
+    tr.transcribe(audios)
+    assert profiling.events(t0, time.monotonic_ns()) == []
 
 
 def test_recording_changes_no_result():

@@ -38,13 +38,25 @@ on, so the devices overlap, and each device keeps the two-deep pipeline.
 The logprobs are gathered in row order, then split and decoded as on one
 device.
 
+A batch goes to the device unpadded: its calls' own samples are copied
+once, back to back, into a host staging buffer (int16 where every call is
+int16, else int32), each device is sent its own rows' part of it, and the
+padded rows are built there (zeros, then each call copied into its place).
+The staging buffers and, on a card, the pinned buffers the logprobs come
+back into are rings of two, reused from batch to batch and call to call and
+grown only when a batch needs more room; before the host writes into one
+again it waits for the events recorded after the device's last copy from
+or into it.  On a card the rings are pinned and the copies do not block.
+
 Traced (``profiling``), each batch records the spans ``offline.assemble``
-(pad, bucket, pin, queue the copy to the device), ``offline.forward`` (the
-forward's dispatch and the copies back), ``offline.wait``,
-``offline.split``, ``offline.decode`` and ``offline.align``, with the
-batch's index in the call as their id, and the counts
-``offline.audio_samples`` (the rows' own samples) and
-``offline.padded_samples`` (the samples the forward computes).
+(stage, bucket, queue the copy to the device and build the padded rows
+there), ``offline.forward`` (the forward's dispatch and the copies back),
+``offline.wait``, ``offline.split``, ``offline.decode`` and
+``offline.align``, with the batch's index in the call as their id, and the
+counts ``offline.audio_samples`` (the rows' own samples),
+``offline.padded_samples`` (the samples the forward computes),
+``offline.upload_bytes`` (the bytes staged and sent to the devices) and
+``offline.staging_allocs`` (ring buffers allocated or grown).
 """
 
 from __future__ import annotations
@@ -68,13 +80,51 @@ from tone_tpu_torch.splitter import StreamingLogprobSplitter
 __all__ = ["OfflineTranscriber"]
 
 
+class _HostRing:
+    """Two reusable host buffers (pinned on a card), each guarded by the
+    events recorded after the device's last copy from or into it."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self._buffers: list[torch.Tensor | None] = [None, None]
+        self._events: list[list] = [[], []]
+
+    def take(self, slot: int, n: int, dtype: torch.dtype) -> torch.Tensor:
+        """Buffer ``slot`` as ``n`` elements of ``dtype``, once the device is
+        done with it; allocated, or grown, only when it is too small."""
+        for event in self._events[slot]:
+            event.synchronize()
+        self._events[slot] = []
+        nbytes = n * dtype.itemsize
+        buffer = self._buffers[slot]
+        if buffer is None or buffer.numel() < nbytes:
+            buffer = self._buffers[slot] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                                       pin_memory=self.pinned)
+            profiling.count("offline.staging_allocs", 1)
+        return buffer[:nbytes].view(dtype)
+
+    def guard(self, slot: int, events: list) -> None:
+        """The events after the device's copies from or into buffer ``slot``."""
+        self._events[slot] = events
+
+
+def _record_event(device: torch.device) -> list:
+    """An event recorded on ``device``'s current stream, in a list (empty
+    off a card, whose copies have finished when they return)."""
+    if device.type != "cuda":
+        return []
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return [event]
+
+
 @dataclass(frozen=True)
 class _Model:
     """What the transcriber does differently for each architecture, chosen
     once from its config (``OfflineTranscriber._choose_model``)."""
 
     unit_frames: int  # logprob frames per unit of a row's length (the rows' units)
-    assemble: Callable  # (idx, audios) -> (rows' units, each device's batch, queued)
+    assemble: Callable  # (idx, audios, batch) -> (rows' units, each device's batch, queued)
     # The transcriber's method (variables, a device's batch) -> logprobs, by
     # name: looked up at each launch, so that one replaced on the instance runs.
     forward: str
@@ -119,6 +169,9 @@ class OfflineTranscriber:
         self._shards = list(zip(devices, replicate(
             cast_params_for_inference(self.variables, self.config), devices)))
         self.variables = self._shards[0][1]
+        pinned = self.device.type == "cuda"
+        self._staging = _HostRing(pinned)   # the batches' unpadded samples
+        self._host_logprobs = _HostRing(pinned)   # the logprobs' copies back (a card's)
 
     def _choose_model(self) -> _Model:
         cfg = self.config
@@ -172,8 +225,8 @@ class OfflineTranscriber:
 
         def finish(launched):
             idx, row_chunks, logprobs = self._wait(launched)
-            for row, i in enumerate(idx):
-                out[i] = logprobs[row, :row_chunks[row] * self._model.unit_frames]
+            for row, i in enumerate(idx):   # copies: the host buffer is reused
+                out[i] = logprobs[row, :row_chunks[row] * self._model.unit_frames].copy()
 
         self._pipelined(audios, finish)
         return out  # type: ignore[return-value]
@@ -196,70 +249,90 @@ class OfflineTranscriber:
         logprobs to the host; returns (idx, row_chunks, host logprobs, copy
         events, batch) without waiting."""
         with profiling.span("offline.assemble", batch):
-            row_chunks, chunks = self._model.assemble(idx, audios)
+            row_chunks, chunks = self._model.assemble(idx, audios, batch)
         with profiling.span("offline.forward", batch):
             forward = getattr(self, self._model.forward)
             logprobs = [forward(variables, c) for (_, variables), c in zip(self._shards, chunks)]
             if self.device.type != "cuda":
                 return idx, row_chunks, torch.cat(logprobs), [], batch
             per = logprobs[0].shape[0]
-            host = torch.empty((per * len(chunks), *logprobs[0].shape[1:]), dtype=torch.float32,
-                               pin_memory=True)
+            shape = (per * len(chunks), *logprobs[0].shape[1:])
+            host = self._host_logprobs.take(batch % 2, int(np.prod(shape)),
+                                            torch.float32).view(shape)
             events = []
             for k, lp in enumerate(logprobs):
                 host[k * per:(k + 1) * per].copy_(lp, non_blocking=True)
-                events.append(torch.cuda.Event())
-                events[-1].record(torch.cuda.current_stream(lp.device))
+                events += _record_event(lp.device)
+            self._host_logprobs.guard(batch % 2, events)
         return idx, row_chunks, host, events, batch
 
-    def _assemble_chunks(self, idx, audios) -> tuple[list[int], list[torch.Tensor]]:
+    def _assemble_chunks(self, idx, audios, batch) -> tuple[list[int], list[torch.Tensor]]:
         """(row_chunks, each device's rows of the padded chunks, queued to it)."""
         cfg = self.config
         pad = cfg.padding
         chunk = cfg.audio_chunk_samples
         bucket_chunks = max(self.bucket_samples // chunk, 1)
-        batch_audios = [np.pad(np.asarray(audios[i], np.int32), (pad, pad)) for i in idx]
-        # rows padded to a shared, bucketed chunk count
-        row_chunks = [-(-len(a) // chunk) for a in batch_audios]
+        calls = [np.asarray(audios[i]) for i in idx]
+        # rows (each call between ``pad`` zeros) padded to a shared, bucketed
+        # chunk count
+        row_chunks = [-(-(len(a) + 2 * pad) // chunk) for a in calls]
         n_chunks = -(-max(row_chunks) // bucket_chunks) * bucket_chunks
         # Zero rows pad the batch to an even split over the devices (dropped
         # after the forward).
         n_rows = -(-len(idx) // len(self._shards)) * len(self._shards)
-        per = n_rows // len(self._shards)
-        audio_arr = np.zeros((n_rows, n_chunks * chunk), np.int32)
-        for row, a in enumerate(batch_audios):
-            audio_arr[row, :len(a)] = a
-        chunks = torch.from_numpy(audio_arr.reshape(n_rows, n_chunks, chunk))
-        if self.device.type == "cuda":
-            chunks = chunks.pin_memory()
+        rows = self._rows_on_devices(calls, n_rows, n_chunks * chunk, pad, batch)
         if profiling.recording():
-            profiling.count("offline.audio_samples", sum(len(audios[i]) for i in idx))
-            profiling.count("offline.padded_samples", audio_arr.size)
-        return row_chunks, [chunks[k * per:(k + 1) * per].to(dev, non_blocking=True)
-                            for k, (dev, _) in enumerate(self._shards)]
+            profiling.count("offline.audio_samples", sum(len(a) for a in calls))
+            profiling.count("offline.padded_samples", n_rows * n_chunks * chunk)
+        return row_chunks, [r.view(r.shape[0], n_chunks, chunk) for r in rows]
 
-    def _assemble_calls(self, idx, audios) -> tuple[list[int], list[tuple]]:
+    def _assemble_calls(self, idx, audios, batch) -> tuple[list[int], list[tuple]]:
         """A FastConformer batch: (each row's output frames, [((B, samples)
-        int32 audio queued to the device, the rows' host lengths)]); rows
-        padded with zeros to a bucketed multiple of an output frame's
-        samples."""
+        audio queued to the device, the rows' host lengths)]); rows padded
+        with zeros to a bucketed multiple of an output frame's samples."""
         cfg = self.config
         unit = cfg.frame_samples
         bucket_units = max(self.bucket_samples // unit, 1)
-        lengths = np.array([len(audios[i]) for i in idx], np.int64)
+        calls = [np.asarray(audios[i]) for i in idx]
+        lengths = np.array([len(a) for a in calls], np.int64)
         units = max(-(-int(lengths.max()) // unit), 1)
         n_units = -(-units // bucket_units) * bucket_units
-        audio_arr = np.zeros((len(idx), n_units * unit), np.int32)
-        for row, i in enumerate(idx):
-            audio_arr[row, :lengths[row]] = audios[i]
-        audio = torch.from_numpy(audio_arr)
-        if self.device.type == "cuda":
-            audio = audio.pin_memory()
+        (audio,) = self._rows_on_devices(calls, len(idx), n_units * unit, 0, batch)
         if profiling.recording():
             profiling.count("offline.audio_samples", int(lengths.sum()))
-            profiling.count("offline.padded_samples", audio_arr.size)
+            profiling.count("offline.padded_samples", audio.numel())
         row_frames = [cfg.output_frames(int(n)) for n in lengths]
-        return row_frames, [(audio.to(self.device, non_blocking=True), lengths)]
+        return row_frames, [(audio, lengths)]
+
+    def _rows_on_devices(self, calls, n_rows: int, width: int, offset: int,
+                         batch: int) -> list[torch.Tensor]:
+        """Each device's share of ``n_rows`` rows of ``width`` samples, row
+        ``r`` holding ``calls[r]`` from ``offset`` and zeros elsewhere (int16
+        where every call is int16, else int32).  Only the calls' own samples
+        cross to the devices: staged back to back in the host ring's buffer
+        of ``batch``, each device sent its rows' part, the rows built there."""
+        dtype = torch.int16 if all(a.dtype == np.int16 for a in calls) else torch.int32
+        ends = np.cumsum([0] + [len(a) for a in calls]).tolist()
+        slot = batch % 2
+        staged = self._staging.take(slot, ends[-1], dtype)
+        host = staged.numpy()
+        for a, start, end in zip(calls, ends, ends[1:]):
+            host[start:end] = a
+        if profiling.recording():
+            profiling.count("offline.upload_bytes", ends[-1] * dtype.itemsize)
+        per = n_rows // len(self._shards)
+        rows, events = [], []
+        for k, (dev, _) in enumerate(self._shards):
+            first, last = min(k * per, len(calls)), min((k + 1) * per, len(calls))
+            sent = staged[ends[first]:ends[last]].to(dev, non_blocking=True)
+            events += _record_event(dev)
+            out = torch.zeros((per, width), dtype=dtype, device=dev)
+            for r in range(first, last):
+                out[r - k * per, offset:offset + len(calls[r])].copy_(
+                    sent[ends[r] - ends[first]:ends[r + 1] - ends[first]])
+            rows.append(out)
+        self._staging.guard(slot, events)
+        return rows
 
     @staticmethod
     def _wait(launched):
