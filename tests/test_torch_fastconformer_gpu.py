@@ -11,13 +11,15 @@ Tolerance: 0.03 at most and 0.008 RMS on logprobs, the CPU test's for bf16
 
 from __future__ import annotations
 
+import importlib.util
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import fastconformer_reference as R
 from tone_tpu_torch import profiling
 from tone_tpu_torch.bridge import to_device
 from tone_tpu_torch.checkpoint import convert_fastconformer_state_dict
@@ -29,6 +31,20 @@ from tone_tpu_torch.config import (
 from tone_tpu_torch.core import fastconformer as FC
 from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.offline import OfflineTranscriber
+
+
+def _load_reference():
+    """The benchmark's plain FastConformer reference, which imports nothing
+    of the port, as module ``fastconformer_reference``."""
+    path = Path(__file__).resolve().parents[1] / "benchmark/reference/fastconformer.py"
+    spec = importlib.util.spec_from_file_location("fastconformer_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module     # dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+R = _load_reference()
 
 pytestmark = pytest.mark.gpu
 

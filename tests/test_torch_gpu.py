@@ -579,30 +579,30 @@ from tone_tpu_torch.ops import align_device  # noqa: E402
 from tone_tpu_torch.ops.greedy import greedy_collapse_tokens  # noqa: E402
 
 
-def _tiny_bf16():
-    cfg = ToneConfig(encoder=EncoderConfig(**TINY))
+def _tiny_bf16(chunk_ms: int = 300):
+    cfg = ToneConfig(encoder=EncoderConfig(**TINY)).with_chunk_duration_ms(chunk_ms)
     gen = torch.Generator().manual_seed(1)
     return cfg, _perturbed(init_model_params(gen, cfg), gen)
 
 
-@pytest.mark.parametrize("blocked", [True, False])
-def test_tiny_apply_offline_on_card_matches_cpu(cuda, blocked):
+@pytest.mark.parametrize("chunk_ms", [300, 400], ids=["blocked", "fractional"])
+def test_tiny_apply_offline_on_card_matches_cpu(cuda, chunk_ms):
     """The bf16 full-sequence forward (B1 on the card, its plain version on
-    the CPU) with ragged lengths, within the bf16 step's 0.1."""
+    the CPU) with ragged lengths, within the bf16 step's 0.1, with windows
+    of whole chunks (300 ms) and not (400 ms)."""
     from tone_tpu_torch.acoustic import cast_params_for_inference
     from tone_tpu_torch.bridge import to_device
 
-    cfg, variables = _tiny_bf16()
+    cfg, variables = _tiny_bf16(chunk_ms)
     cast = cast_params_for_inference(variables, cfg)
     wav = torch.from_numpy(np.random.default_rng(2).integers(
         -20000, 20000, (3, 2400 * 5 + 313)).astype(np.int32))
     lens = torch.tensor([wav.shape[1], 9000, 3000], dtype=torch.int32)
     before = glu_ff2.launches
-    lg, ng, _ = apply_offline(to_device(cast, cuda), cfg, wav.to(cuda), lens.to(cuda),
-                              blocked_attention=blocked)
+    lg, ng, _ = apply_offline(to_device(cast, cuda), cfg, wav.to(cuda), lens.to(cuda))
     torch.cuda.synchronize()
     assert glu_ff2.launches == before + 2 * cfg.encoder.n_layers
-    lc, nc, _ = apply_offline(cast, cfg, wav, lens, blocked_attention=blocked)
+    lc, nc, _ = apply_offline(cast, cfg, wav, lens)
     assert ng.cpu().tolist() == nc.tolist()
     for row, n in enumerate(nc.tolist()):
         assert (lg[row, :n].cpu() - lc[row, :n]).abs().max().item() < 0.1
@@ -1224,7 +1224,7 @@ def test_tiny_offline_forward_on_card_counts_its_products_on_tensor_cores(card):
     inference = counts(lambda: apply_offline(cast, cfg, wav))
     feats, _ = log_mel_offline(wav.float(), None, get_frontend_constants(cfg.frontend, card))
     t_feat = feats.shape[1]
-    total = _analytic_macs(cfg, wav.shape[0], t_feat, blocked=True, b1=True)
+    total = _analytic_macs(cfg, wav.shape[0], t_feat, b1=True)
     widened = one_channel_macs(cfg, wav.shape[0], t_feat)
     assert inference == {"layers.tc_macs": total - widened, "layers.widened_macs": widened}
 

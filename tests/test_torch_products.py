@@ -138,8 +138,8 @@ def test_cpu_convolutions_are_the_widened_ones(kind):
     assert torch.equal(got, want.to(BF))
 
 
-def _model(cast: bool):
-    cfg = ToneConfig(encoder=EncoderConfig(**TINY))
+def _model(cast: bool, chunk_ms: int = 300):
+    cfg = ToneConfig(encoder=EncoderConfig(**TINY)).with_chunk_duration_ms(chunk_ms)
     variables = init_model_params(torch.Generator().manual_seed(0), cfg)
     return cfg, (cast_params_for_inference(variables, cfg) if cast else variables)
 
@@ -164,9 +164,11 @@ def one_channel_macs(cfg: ToneConfig, b: int, t_feat: int) -> int:
     return b * c1 * t1 * f1 * kh1 * kw1
 
 
-def _analytic_macs(cfg: ToneConfig, b: int, t_feat: int, blocked: bool, b1: bool) -> int:
+def _analytic_macs(cfg: ToneConfig, b: int, t_feat: int, b1: bool) -> int:
     """Multiply-adds of the model's products and convolutions over a batch
-    of ``b`` rows of ``t_feat`` feature frames, from the config.  ``b1``:
+    of ``b`` rows of ``t_feat`` feature frames, from the config; each
+    attention block of c queries sees its chunk and its left context, w + c
+    keys, whole chunks or not.  ``b1``:
     the feed-forwards' output projections run in kernel B1 (the merged
     ``lin12`` serving weights), which is no product of ``layers``."""
     e = cfg.encoder
@@ -186,14 +188,11 @@ def _analytic_macs(cfg: ToneConfig, b: int, t_feat: int, blocked: bool, b1: bool
         macs += 2 * (rows * d * 2 * f + (0 if b1 else rows * f * d))   # ff1, ff2
         recompute = e.should_recompute_att_scores[i]
         macs += (4 if recompute else 2) * rows * d * d               # q, k, v, out
-        if blocked:
-            c = e.chunk_size // r if reduced else e.chunk_size
-            w = 0
-            if i >= e.mhsa_stateless_layers:
-                w = e.mhsa_state_size // r if reduced else e.mhsa_state_size
-            per_product = b * h * -(-t // c) * c * (w + c) * dh
-        else:
-            per_product = b * h * t * t * dh
+        c = e.chunk_size // r if reduced else e.chunk_size
+        w = 0
+        if i >= e.mhsa_stateless_layers:
+            w = e.mhsa_state_size // r if reduced else e.mhsa_state_size
+        per_product = b * h * -(-t // c) * c * (w + c) * dh
         macs += (2 if recompute else 1) * per_product                # scores, context
         macs += rows * d * 2 * d + rows * d * e.conv_kernel_size + rows * d * d
         if i == e.reduction_position:
@@ -221,15 +220,14 @@ def _t_feat(cfg, wav):
     return feats.shape[1]
 
 
-@pytest.mark.parametrize("blocked", [True, False], ids=["blocked", "masked"])
+@pytest.mark.parametrize("chunk_ms", [300, 400], ids=["blocked", "fractional"])
 @pytest.mark.parametrize("cast", [False, True], ids=["split-ff", "serving-cast"])
-def test_bf16_inference_forward_counts_every_product_as_widened_on_the_cpu(blocked, cast):
-    cfg, variables = _model(cast)
+def test_bf16_inference_forward_counts_every_product_as_widened_on_the_cpu(chunk_ms, cast):
+    cfg, variables = _model(cast, chunk_ms)
     wav, lens = _audio()
-    counts, (logprobs, _, _) = _counts(
-        lambda: apply_offline(variables, cfg, wav, lens, blocked_attention=blocked))
+    counts, (logprobs, _, _) = _counts(lambda: apply_offline(variables, cfg, wav, lens))
     t_feat = _t_feat(cfg, wav)
-    want = _analytic_macs(cfg, wav.shape[0], t_feat, blocked, b1=cast)
+    want = _analytic_macs(cfg, wav.shape[0], t_feat, b1=cast)
     assert counts == {"layers.widened_macs": want}
     assert want > 0 and logprobs.shape[1] > 0
 
@@ -249,7 +247,7 @@ def test_training_forward_counts_nothing_on_the_tensor_cores():
             return logprobs
 
     counts, _ = _counts(forward)
-    want = _analytic_macs(cfg, wav.shape[0], _t_feat(cfg, wav), blocked=True, b1=False)
+    want = _analytic_macs(cfg, wav.shape[0], _t_feat(cfg, wav), b1=False)
     assert "layers.tc_macs" not in counts
     assert counts == {"layers.widened_macs": want}
 

@@ -16,8 +16,10 @@ Tolerances:
   training-mode BatchNorm have an exact gradient of 0 (the batch mean
   removes them), so both packages give rounding noise there: those are
   held to 1e-4 × the largest |g| of the whole tree;
-* blocked against masked attention in train mode: 2e-3 on gradients
-  (tests/test_encoder_blocked.py's bound for the forward);
+* the 400 ms geometry (windows that are not whole chunks), the port
+  against the JAX masked form in train mode: 2e-3 on gradients
+  (tests/test_encoder_blocked.py's bound between the JAX package's two
+  forms);
 * bf16 train-mode forward against the JAX default: 0.05 on logprobs (the
   bf16 step's bound, tests/test_torch_model.py) and 2e-2 relative on the
   statistics (a few bf16 roundings of the convolution outputs);
@@ -67,15 +69,17 @@ from train_tiny_e2e import tiny_config  # noqa: E402
 BLANK = 34
 
 
-def _configs(dtype="float32", dropout=0.0):
+def _configs(dtype="float32", dropout=0.0, chunk_ms=300):
     enc = dict(TINY_ENCODER, dropout=dropout, dropout_att=dropout)
-    return (jcfg.ToneConfig(encoder=jcfg.EncoderConfig(**enc), compute_dtype=dtype),
-            tcfg.ToneConfig(encoder=tcfg.EncoderConfig(**enc), compute_dtype=dtype))
+    return (jcfg.ToneConfig(encoder=jcfg.EncoderConfig(**enc),
+                            compute_dtype=dtype).with_chunk_duration_ms(chunk_ms),
+            tcfg.ToneConfig(encoder=tcfg.EncoderConfig(**enc),
+                            compute_dtype=dtype).with_chunk_duration_ms(chunk_ms))
 
 
 @functools.lru_cache(maxsize=None)
-def _models(dtype="float32", dropout=0.0):
-    jc, tc = _configs(dtype, dropout)
+def _models(dtype="float32", dropout=0.0, chunk_ms=300):
+    jc, tc = _configs(dtype, dropout, chunk_ms)
     jv, tv = tiny_variables_with_stats(jc, tc)
     return jc, tc, jv, tv
 
@@ -207,13 +211,13 @@ def _forward_inputs():
     return wav, np.array([wav.shape[1], 7000, 3000], np.int32)
 
 
-@pytest.mark.parametrize("blocked", [True, False])
-def test_train_forward_matches_jax(blocked):
+@pytest.mark.parametrize("jax_form", ["blocked", "masked"])
+def test_train_forward_matches_jax(jax_form):
     jc, tc, jv, tv = _models()
     wav, lens = _forward_inputs()
-    jlp, jlen, jstats = _jax_train_forward("float32", blocked)(jv, wav, lens)
+    jlp, jlen, jstats = _jax_train_forward("float32", jax_form == "blocked")(jv, wav, lens)
     tlp, tlen, tstats = TM.apply_offline(tv, tc, torch.from_numpy(wav), torch.from_numpy(lens),
-                                         rng=0, training=True, blocked_attention=blocked)
+                                         rng=0, training=True)
     np.testing.assert_array_equal(tlen.numpy(), np.asarray(jlen))
     for row, n in enumerate(np.asarray(jlen)):
         np.testing.assert_allclose(tlp[row, :n].detach().numpy(), np.asarray(jlp)[row, :n],
@@ -246,11 +250,11 @@ def _jax_grads(jc, jv, wav, lens, labels, blocked):
     return jax.jit(jax.grad(loss))(jax.tree.map(jnp.asarray, jv["params"]))
 
 
-def _port_grads(tc, tv, wav, lens, labels, blocked):
+def _port_grads(tc, tv, wav, lens, labels):
     params = TTRAIN.tree_map(lambda t: t.clone().requires_grad_(True), tv["params"])
     lp, out_len, _ = TM.apply_offline({"params": params, "batch_stats": tv["batch_stats"]}, tc,
                                       torch.from_numpy(wav), torch.from_numpy(lens), rng=0,
-                                      training=True, blocked_attention=blocked)
+                                      training=True)
     loss = TTR.ctc_loss(lp, out_len, torch.from_numpy(labels), blank_id=BLANK)
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss, leaves)
@@ -271,23 +275,26 @@ def _assert_grads_close(pairs, rel):
         assert np.abs(a - b).max() <= rel * scale, (key, np.abs(a - b).max(), scale)
 
 
-@pytest.mark.parametrize("blocked", [True, False])
-def test_train_gradients_match_jax(blocked):
+@pytest.mark.parametrize("jax_form", ["blocked", "masked"])
+def test_train_gradients_match_jax(jax_form):
     jc, tc, jv, tv = _models()
     wav, lens, labels = _grad_batch()
-    pairs = _pairs(_jax_grads(jc, jv, wav, lens, labels, blocked),
-                   _port_grads(tc, tv, wav, lens, labels, blocked))
+    pairs = _pairs(_jax_grads(jc, jv, wav, lens, labels, jax_form == "blocked"),
+                   _port_grads(tc, tv, wav, lens, labels))
     assert len(pairs) == len(tree_leaves(tv["params"]))
     _assert_grads_close(pairs, 1e-4)
 
 
 def test_train_blocked_matches_masked_gradients():
-    _, tc, _, tv = _models()
+    """The 400 ms geometry: the port's blocked gradients against the JAX
+    package's masked ones."""
+    jc, tc, jv, tv = _models(chunk_ms=400)
     wav, lens, labels = _grad_batch()
-    blocked = tree_leaves(_port_grads(tc, tv, wav, lens, labels, True))
-    masked = tree_leaves(_port_grads(tc, tv, wav, lens, labels, False))
-    for a, b in zip(blocked, masked):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-3, rtol=0)
+    pairs = _pairs(_jax_grads(jc, jv, wav, lens, labels, False),
+                   _port_grads(tc, tv, wav, lens, labels))
+    assert len(pairs) == len(tree_leaves(tv["params"]))
+    for key, a, b in pairs:
+        np.testing.assert_allclose(b, a, atol=2e-3, rtol=0, err_msg=key)
 
 
 def test_train_forward_bf16_matches_jax():
@@ -491,6 +498,27 @@ def test_trainer_matches_jax():
     _assert_params_close(_pairs(js.params, ts.params), lr_sum)
     for key, a, b in _pairs(js.batch_stats, ts.batch_stats):
         np.testing.assert_allclose(b, a, atol=0.25 * lr_sum, rtol=0, err_msg=key)
+
+
+def test_trainer_runs_the_400ms_geometry():
+    """Two steps (lr 0, then one past the warmup) of the tiny model at 400 ms
+    chunks, whose windows are not whole chunks, against the JAX trainer on
+    its masked form, float32, dropout 0: the bounds of
+    ``test_trainer_matches_jax``."""
+    jc, tc, jv, tv = _models(chunk_ms=400)
+    batch = _batch(3)
+    cfg = dict(total_steps=10, learning_rate=1e-3)
+    jt = JTR.Trainer(jc, JTR.TrainerConfig(**cfg, blocked_attention=False),
+                     mesh=make_mesh(n_data=1, n_model=1))
+    tt = TTR.Trainer(tc, TTR.TrainerConfig(**cfg), device="cpu")
+    js, ts = jt.create_state(jax.tree.map(jnp.asarray, jv)), tt.create_state(tv)
+    for step in range(2):
+        js, jl = jt.train_step(js, batch)
+        ts, tl = tt.train_step(ts, batch)
+        assert float(tl) == pytest.approx(float(jl), rel=1e-5), step
+    lr_sum = sum(float(TTRAIN.make_lr_schedule(tt.config)(c)) for c in range(2))
+    assert lr_sum > 0
+    _assert_params_close(_pairs(js.params, ts.params), lr_sum)
 
 
 def _assert_params_close(pairs, lr_sum):

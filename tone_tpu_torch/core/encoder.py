@@ -269,11 +269,11 @@ def _conformer_layer(p: Params, bn_stats: Params, x: torch.Tensor, *,
     """One Macaron Conformer block.
 
     ``blocked`` = (chunk, left_context, lengths) routes the attention through
-    the block-diagonal offline path (``layers.mhsa_blocked``) instead of a
-    masked (T, T) product; ``att_mask`` is then None.  ``pad_mask`` and
-    ``conv_state=None`` are the offline conv module's (``_conv_module``).
-    In training, ``generators`` holds one dropout generator per site
-    (``DROPOUT_SITES``); without it no dropout applies.
+    the offline forward's per-chunk blocks (``layers.mhsa_blocked``) instead
+    of the streaming step's masked product; ``att_mask`` is then None.
+    ``pad_mask`` and ``conv_state=None`` are the offline conv module's
+    (``_conv_module``).  In training, ``generators`` holds one dropout
+    generator per site (``DROPOUT_SITES``); without it no dropout applies.
 
     ``mesh`` (a ``parallel.collectives.ProcessMesh``; the offline forward
     only): this rank holds its data position's rows and, with more than
@@ -419,24 +419,8 @@ def encoder_streaming_step(params: Params, batch_stats: Params, cfg: EncoderConf
 
 
 # ---------------------------------------------------------------------------
-# Offline forward (whole utterances) with chunk-simulating masks.
+# Offline forward (whole utterances) with chunk-simulating attention.
 # ---------------------------------------------------------------------------
-
-
-def _offline_att_mask(t: int, chunk: int, left_context: int,
-                      lengths: torch.Tensor) -> torch.Tensor:
-    """(B, T, T) chunked-causal attention mask that simulates streaming, True
-    = masked: each query row attends to its own chunk plus ``left_context``
-    frames before the chunk start, within the valid (unpadded) frames."""
-    dev = lengths.device
-    rows = torch.arange(t, device=dev)[:, None]
-    cols = torch.arange(t, device=dev)[None, :]
-    chunk_start = rows - rows % chunk
-    in_chunk = (cols >= chunk_start) & (cols < chunk_start + chunk)
-    in_state = (cols >= chunk_start - left_context) & (cols < chunk_start)
-    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]  # (B, T)
-    allowed = (in_chunk | in_state)[None] & valid[:, None, :] & valid[:, :, None]
-    return ~allowed
 
 
 DROPOUT_SITES = ("ff1", "att", "att_out", "conv", "ff2")
@@ -453,19 +437,17 @@ def layer_generators(rng: int, layer: int, device: torch.device) -> dict[str, to
 
 def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
                     feats: torch.Tensor, lengths: torch.Tensor | None,
-                    dtype=torch.bfloat16, blocked_attention: bool = True,
-                    rng: int | None = None, training: bool = False, mesh=None,
-                    ) -> tuple[torch.Tensor, torch.Tensor, Params]:
+                    dtype=torch.bfloat16, rng: int | None = None, training: bool = False,
+                    mesh=None) -> tuple[torch.Tensor, torch.Tensor, Params]:
     """Full-sequence forward with masks that exactly simulate streaming.
 
     Attention is chunk-local (plus the 30-frame left context of the two
-    stateful layers), so the output is the chunked streaming step's.
-    ``blocked_attention`` (the default) computes it as dense per-chunk
-    blocks (``layers.mhsa_blocked``); ``False`` uses masked (T, T)
-    products.  In eval mode the BatchNorms read their running statistics;
-    with ``training`` they normalize with batch statistics and return
-    updated running ones, and dropout applies where ``rng`` (an integer
-    seed) is given.  ``mesh``: this process is one rank of a training mesh
+    stateful layers), so the output is the chunked streaming step's; it is
+    computed as dense per-chunk blocks (``layers.mhsa_blocked``).  In eval
+    mode the BatchNorms read their running statistics; with ``training``
+    they normalize with batch statistics and return updated running ones,
+    and dropout applies where ``rng`` (an integer seed) is given.
+    ``mesh``: this process is one rank of a training mesh
     (``_conformer_layer``); ``feats`` are its rows and its parameters its
     shards.
 
@@ -497,19 +479,13 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
     chunk_full, chunk_red = cfg.chunk_size, cfg.chunk_size // r
     win_full, win_red = cfg.mhsa_state_size, cfg.mhsa_state_size // r
 
-    # Mask groups: layers below mhsa_stateless_layers have no left context
-    # offline, the stateful ones keep theirs.  Blocked attention takes
-    # (chunk, left_context, lengths) in place of a (T, T) mask.
-    groups = {"full_noctx": (t, chunk_full, 0, len_full),
-              "red_noctx": (t_red, chunk_red, 0, len_red),
-              "red_ctx": (t_red, chunk_red, win_red, len_red),
-              "full_ctx": (t, chunk_full, win_full, len_full)}
-    if blocked_attention:
-        blocks = {k: (c, w, n) for k, (_, c, w, n) in groups.items()}
-        masks = {k: None for k in groups}
-    else:
-        blocks = {k: None for k in groups}
-        masks = {k: _offline_att_mask(*g) for k, g in groups.items()}
+    # Mask groups, as (chunk, left_context, lengths): layers below
+    # mhsa_stateless_layers have no left context offline, the stateful ones
+    # keep theirs.
+    blocks = {"full_noctx": (chunk_full, 0, len_full),
+              "red_noctx": (chunk_red, 0, len_red),
+              "red_ctx": (chunk_red, win_red, len_red),
+              "full_ctx": (chunk_full, win_full, len_full)}
     pad_full = torch.arange(t, device=dev)[None, :] >= len_full[:, None]
     pad_red = torch.arange(t_red, device=dev)[None, :] >= len_red[:, None]
 
@@ -525,7 +501,7 @@ def encoder_offline(params: Params, batch_stats: Params, cfg: EncoderConfig,
         gens = layer_generators(rng, i, dev) if training and rng is not None else None
         x, cached_scores, _, _, stats = _conformer_layer(
             params["layers"][i], batch_stats["layers"][i], x, cfg=cfg, mhsa_window=None,
-            k_offset=0, att_mask=masks[group], cached_scores=cached_scores,
+            k_offset=0, att_mask=None, cached_scores=cached_scores,
             conv_state=None, dtype=dtype, pad_mask=pad_red if in_reduced else pad_full,
             blocked=blocks[group], generators=gens, training=training, mesh=mesh)
         layer_stats.append(stats)

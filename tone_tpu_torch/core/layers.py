@@ -492,14 +492,17 @@ def _tp_heads(tp, p: Params, query, kv, n_heads: int):
     return p, query, kv, n_heads // tp.n_model, tp.reduce_from_model
 
 
-def _block_window(xb: torch.Tensor, n_window_chunks: int) -> torch.Tensor:
-    """(B, H, n, c, d) chunked tensor -> (B, H, n, (nw+1)*c, d) where chunk
-    i's window is chunks [i-nw .. i] (zeros shifted in before the sequence)."""
+def _block_window(xb: torch.Tensor, n_window_chunks: int, skip: int) -> torch.Tensor:
+    """(B, H, n, c, d) chunked tensor -> (B, H, n, (nw+1)*c - skip, d) where
+    chunk i's window is chunks [i-nw .. i] (zeros shifted in before the
+    sequence) less the first ``skip`` frames of chunk i-nw."""
     if n_window_chunks == 0:
         return xb
     n = xb.shape[2]
     parts = [F.pad(xb, (0, 0, 0, 0, j, 0))[:, :, :n]
              for j in range(n_window_chunks, 0, -1)]
+    if skip:
+        parts[0] = parts[0][:, :, :, skip:]
     return torch.cat(parts + [xb], dim=3)
 
 
@@ -526,8 +529,9 @@ def mhsa_blocked(
     (each query chunk attends to itself plus ``left_context`` preceding
     frames): every key that mask allows is inside the block window, and
     every key outside it would take -1e4 and vanish in the float32
-    softmax.  Computes (B, H, n_chunks, c, w+c) score blocks instead of
-    (B, H, T, T).  ``left_context`` must be a whole number of chunks.
+    softmax.  Computes (B, H, n_chunks, c, w+c) score blocks, w =
+    ``left_context``, instead of (B, H, T, T).  A window that is not a whole
+    number of chunks is cut from the ceil(w / c) chunks before the query's.
 
     Returns (output (B, T, D), scores (B, H, n, c, w+c) float32); the scores
     are reusable as ``cached_scores`` by the score-sharing layers of the
@@ -537,9 +541,8 @@ def mhsa_blocked(
     b, t, d = x.shape
     d_head = d // n_heads
     p, x, _, n_heads, reduce = _tp_heads(tp, p, x, x, n_heads)
-    if left_context % chunk:
-        raise ValueError(f"left_context {left_context} is not a multiple of chunk {chunk}")
-    nw = left_context // chunk
+    nw = -(-left_context // chunk)
+    skip = nw * chunk - left_context        # window frames before the left context
     n = -(-t // chunk)
     tp_len = n * chunk
 
@@ -555,20 +558,20 @@ def mhsa_blocked(
         q = linear(p["linear_q"], x, compute_dtype).reshape(b, t, n_heads, d_head)
         k = linear(p["linear_k"], x, compute_dtype).reshape(b, t, n_heads, d_head)
         qb = rope(blocked(layernorm(p["q_ln"], q)))
-        kwin = _block_window(rope(blocked(layernorm(p["k_ln"], k))), nw)
+        kwin = _block_window(rope(blocked(layernorm(p["k_ln"], k))), nw, skip)
         scores = _mm(qb, kwin.transpose(-1, -2)) / math.sqrt(d_head)
     else:
         scores = cached_scores
 
     v = linear(p["linear_v"], x, compute_dtype).reshape(b, t, n_heads, d_head)
-    vwin = _block_window(blocked(v), nw)
+    vwin = _block_window(blocked(v), nw, skip)
 
     # Mask (True = masked): window slot s of chunk i is global column
-    # (i - nw) * chunk + s, masked before the sequence start or at/past the
-    # valid length; rows at/past the valid length are masked whole.
+    # (i - nw) * chunk + skip + s, masked before the sequence start or at/past
+    # the valid length; rows at/past the valid length are masked whole.
     dev = x.device
     cols = ((torch.arange(n, device=dev)[:, None] - nw) * chunk
-            + torch.arange((nw + 1) * chunk, device=dev))                  # (n, w+c)
+            + torch.arange(skip, (nw + 1) * chunk, device=dev))            # (n, w+c)
     rows = torch.arange(tp_len, device=dev).reshape(n, chunk)             # (n, c)
     lens = lengths.to(dev)[:, None, None]
     col_ok = (cols[None] >= 0) & (cols[None] < lens)                      # (B, n, w+c)

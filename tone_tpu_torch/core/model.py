@@ -121,7 +121,7 @@ def apply_streaming(variables: dict[str, Params], config: ToneConfig,
 def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch.Tensor,
                   lengths: torch.Tensor | None = None,
                   constants: FrontendConstants | None = None, rng: int | None = None,
-                  training: bool = False, blocked_attention: bool = True, mesh=None,
+                  training: bool = False, mesh=None,
                   ) -> tuple[torch.Tensor, torch.Tensor, dict[str, Params]]:
     """Full-sequence forward of whole utterances: inference, or the training
     forward.
@@ -135,8 +135,6 @@ def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch
             dropout, as the reference without a key).
         training: BatchNorms on batch statistics, dropout, and autograd on;
             otherwise the forward runs under ``torch.no_grad``.
-        blocked_attention: chunk-local attention as per-chunk blocks (the
-            default) or as masked (T, T) products.
         mesh: a ``parallel.collectives.ProcessMesh`` when this process is
             one rank of a training mesh: ``audio`` holds its rows and
             ``variables`` its parameter shards (``training.train``).
@@ -158,8 +156,7 @@ def apply_offline(variables: dict[str, Params], config: ToneConfig, audio: torch
         feats, feat_lens = log_mel_offline(wav, lengths, constants)
         encoded, out_len, stats = encoder_offline(
             variables["params"]["encoder"], variables["batch_stats"], config.encoder,
-            feats, feat_lens, dtype, blocked_attention=blocked_attention, rng=rng,
-            training=training, mesh=mesh)
+            feats, feat_lens, dtype, rng=rng, training=training, mesh=mesh)
         return _head(variables["params"]["head"], encoded), out_len, stats
 
 

@@ -39,8 +39,8 @@ def make_batch(batch: int, seconds: float, label_len: int, sample_rate: int = 80
 
 
 def measure(batch: int = 16, seconds: float = 10.0, label_len: int = 100, steps: int = 8,
-            grad_accum: int = 1, remat: str | None = None, blocked_attention: bool = True,
-            device=None, config=None, variables=None) -> dict:
+            grad_accum: int = 1, remat: str | None = None, device=None, config=None,
+            variables=None) -> dict:
     """The JAX script's report: one first step (``compile_s``: no compiler
     here, the first step's wall time), then the two-point slope over chains
     of ``steps`` and ``3 * steps`` steps (each the shorter of two runs).
@@ -61,9 +61,8 @@ def measure(batch: int = 16, seconds: float = 10.0, label_len: int = 100, steps:
     staged = {k: torch.from_numpy(v).to(dev)
               for k, v in make_batch(batch, seconds, label_len,
                                      config.frontend.sample_rate).items()}
-    trainer = Trainer(config, TrainerConfig(
-        grad_accum_steps=grad_accum, remat=remat, blocked_attention=blocked_attention),
-        device=dev)
+    trainer = Trainer(config, TrainerConfig(grad_accum_steps=grad_accum, remat=remat),
+                      device=dev)
     state = trainer.create_state(variables)
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     on_card = dev.type == "cuda"
@@ -117,16 +116,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--steps", type=int, default=8)
     parser.add_argument("--grad-accum", type=int, default=1)
     parser.add_argument("--remat", choices=["dots", "full"], default=None)
-    parser.add_argument("--no-blocked-attention", action="store_true",
-                        help="masked (T,T) offline attention (the pre-"
-                             "blocked baseline) instead of mhsa_blocked")
     parser.add_argument("--cpu", action="store_true", help="same as --device cpu")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' to run on the CPU)")
     args = parser.parse_args(argv)
     print(json.dumps(measure(args.batch, args.seconds, args.label_len, args.steps,
-                             args.grad_accum, args.remat, not args.no_blocked_attention,
-                             "cpu" if args.cpu else args.device)))
+                             args.grad_accum, args.remat, "cpu" if args.cpu else args.device)))
 
 
 if __name__ == "__main__":

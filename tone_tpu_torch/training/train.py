@@ -97,9 +97,6 @@ class TrainerConfig:
     # (the counterpart of jax.checkpoint's dots_with_no_batch_dims policy),
     # "full" keeps nothing.
     remat: str | None = None
-    # Chunk-blocked offline attention (layers.mhsa_blocked) instead of
-    # masked (T, T) products.
-    blocked_attention: bool = True
     seed: int = 0
 
 
@@ -359,7 +356,7 @@ class Trainer:
     def _forward(self, params, batch_stats, seed: int, audio, lengths):
         return apply_offline({"params": params, "batch_stats": batch_stats},
                              self.model_config, audio, lengths, rng=seed, training=True,
-                             blocked_attention=self.config.blocked_attention, mesh=self.mesh)
+                             mesh=self.mesh)
 
     def compute_gradients(self, state: TrainState, batch: dict, seed: int | None = None,
                           ) -> tuple[torch.Tensor, Any, Any]:
