@@ -209,10 +209,23 @@ prints one JSON line per phase:
             tone_tpu_torch download DIR`` in a process of its own (the served
             bytes); the checkpoint, LM and a VAD file pushed with the port's
             push_hf, its model.safetensors loading bit-equal.
+20. rel_attention  kernel B3 (``ops/rel_attention.py``) at the Parakeet
+            cell's four batches (``dev/torch_rel_attention_ab.py
+            cell_batches``: 16 rows, longest 3,550, 1,142, 763 and 491
+            frames; H 8, d_head 128; seeded bf16 projections): one launch per
+            call, counted from zero, held to its plain version
+            (``layers.rel_attention_plain``) on the same inputs within the card
+            tests' limits (max 2^-6 of the larger of 1 and the row's largest
+            value, RMS 2^-7 of the row's RMS; rows past each length zero),
+            its device time per launch (profiler) beside its bound (6 T^2 d
+            useful operations per row at the bf16 peak) and the plain
+            version's time; then the full-width ``FastConformerConfig()``
+            (random weights, seed 0) through ``OfflineTranscriber`` on 16
+            calls: 42 launches, one per layer, in the forward.
 
 ``--phases`` runs a subset after the build (for development; the kernel
-summary line needs the kernels, serve, fused_kernels, fused_step and bulk
-phases).
+summary line holds B1 where the kernels, serve and bulk phases ran, B2
+where fused_kernels and fused_step ran, B3 where rel_attention ran).
 Every phase line after ``device`` gives the phase's seconds as
 ``phase_s``.  Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
@@ -3110,26 +3123,110 @@ def phase_hub() -> dict:
     return out
 
 
+REL_ATTENTION_ITERS = 20
+
+
+def _rel_attention_ab():
+    """dev/torch_rel_attention_ab.py as a module: the cell's batches, its
+    inputs, the useful operations and the check against the plain version."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "dev" / "torch_rel_attention_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_rel_attention_ab", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_rel_attention() -> dict:
+    """B3 at the Parakeet cell's batches, then in a full-width forward (see
+    the module docstring, 20)."""
+    import torch
+
+    from tone_tpu_torch.config import FastConformerConfig
+    from tone_tpu_torch.core import layers as L
+    from tone_tpu_torch.core.fastconformer import init_fastconformer_params
+    from tone_tpu_torch.offline import OfflineTranscriber
+    from tone_tpu_torch.ops import rel_attention as RA
+
+    ab = _rel_attention_ab()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    with torch.no_grad():
+        for lengths in ab.cell_batches():
+            args = ab.cell_inputs(lengths, gen)
+            dev_lengths = torch.tensor(lengths, device="cuda")
+
+            def kernel():
+                return RA.rel_attention(*args, lengths, ab.N_HEADS)
+
+            def plain():
+                return L.rel_attention_plain(*args, n_heads=ab.N_HEADS, lengths=dev_lengths,
+                                             host_lengths=lengths)
+
+            RA.rel_attention.launches = 0
+            out = kernel()
+            launches = RA.rel_attention.launches
+            if launches != 1:
+                raise AssertionError(f"rel_attention: {launches} launches for one call")
+            check = ab.against_plain(out, plain(), lengths)
+            if not check["within_limits"]:
+                raise AssertionError(f"rel_attention at {max(lengths)} frames: {check}")
+            ms = device_time_ms(kernel, REL_ATTENTION_ITERS, "rel_attention_kernel")
+            bound_ms = ab.useful_flops(lengths, ab.N_HEADS * ab.D_HEAD) / BF16_FLOPS * 1e3
+            cases.append({"rows": len(lengths), "longest": max(lengths), "frames": sum(lengths),
+                          "launches": launches, **check, "ms": ms,
+                          "event_ms": cuda_time_ms(kernel, REL_ATTENTION_ITERS),
+                          "plain_ms": cuda_time_ms(plain, 4), "bound_ms": bound_ms,
+                          "bound_by": "operations", "bound_share": bound_ms / ms})
+            del args, out
+        torch.cuda.empty_cache()
+
+    cfg = FastConformerConfig()
+    variables = init_fastconformer_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    calls = [rng.integers(-8000, 8000, n).astype(np.int16)
+             for n in rng.integers(5 * 16000, 60 * 16000, 16)]
+    tr = OfflineTranscriber(variables, cfg, batch_size=16, use_offline_forward=True)
+    RA.rel_attention.launches = 0
+    logprobs = tr.logprobs(calls)
+    forward_launches = RA.rel_attention.launches
+    if forward_launches != cfg.encoder.n_layers:
+        raise AssertionError(f"rel_attention: {forward_launches} launches in a forward of "
+                             f"{cfg.encoder.n_layers} layers")
+    if not all(np.isfinite(lp).all() for lp in logprobs):
+        raise AssertionError("rel_attention: the full-width forward gave non-finite logprobs")
+    return {"phase": "rel_attention", "kernel": "rel_attention", "n_heads": ab.N_HEADS,
+            "d_head": ab.D_HEAD, "ms": "device time per launch (torch.profiler), back to back",
+            "cases": cases, "forward_launches": forward_launches,
+            "forward_calls": len(calls), "forward_layers": cfg.encoder.n_layers}
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
-          "recipes", "bench", "deploy", "hub")
+          "recipes", "bench", "deploy", "hub", "rel_attention")
 
 
 def kernel_summary(out: dict) -> dict:
-    """The line of every kernel: its launches on its main paths, errors,
-    times and bounds."""
-    kernels, serve, fused, fused_step, bulk = (
-        out[k] for k in ("kernels", "serve", "fused_kernels", "fused_step", "bulk"))
+    """The line of every kernel whose phases ran: its launches on its main
+    paths, errors, times and bounds."""
+    lines = []
+    if {"kernels", "serve", "bulk"} <= set(out):
+        lines.append(_glu_ff_line(out))
+    if {"fused_kernels", "fused_step"} <= set(out):
+        lines.append(_fused_layer_line(out))
+    if "rel_attention" in out:
+        lines.append(_rel_attention_line(out["rel_attention"]))
+    return {"kernels": lines}
+
+
+def _glu_ff_line(out: dict) -> dict:
+    kernels, serve, bulk = (out[k] for k in ("kernels", "serve", "bulk"))
     # The serve phase is the main path: its full-rate layers give M = 10 * slots.
     main_m = SERVE_SLOTS * 10
     case = next(c for c in kernels["cases"] if c["m"] == main_m)
-    # The fused step is B2's main path: its 16 layers at B = 64, so B2's
-    # times are the mean per launch over a step's mix of layer kinds.
-    step_cases = [(c, FUSED_KINDS[c["kind"]][1]) for c in fused["cases"] if c["batch"] == 64]
-    per_launch = {key: sum(c[key] * n for c, n in step_cases) / 16
-                  for key in ("ms", "plain_ms", "bound_ms")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "gemm_ms")
-    return {"kernels": [{
+    return {
         "name": "glu_ff2", "route": "cuda", "source": "tone_tpu_torch/csrc/glu_ff.cu",
         "replaces": "tone_tpu/ops/glu_ff.py:60", "launches": serve["glu_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]
@@ -3168,7 +3265,17 @@ def kernel_summary(out: dict) -> dict:
             "deploy_slots": out["deploy"]["engine"]["slots"]}
            if "deploy" in out else {}),
         **({"hub_launches": out["hub"]["glu_launches"], "hub_steps": out["hub"]["hub"]["steps"]}
-           if "hub" in out else {})}, {
+           if "hub" in out else {})}
+
+
+def _fused_layer_line(out: dict) -> dict:
+    fused, fused_step = out["fused_kernels"], out["fused_step"]
+    # The fused step is B2's main path: its 16 layers at B = 64, so B2's
+    # times are the mean per launch over a step's mix of layer kinds.
+    step_cases = [(c, FUSED_KINDS[c["kind"]][1]) for c in fused["cases"] if c["batch"] == 64]
+    per_launch = {key: sum(c[key] * n for c, n in step_cases) / 16
+                  for key in ("ms", "plain_ms", "bound_ms")}
+    return {
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "tone_tpu_torch/csrc/fused_layer.cu",
         "replaces": "tone_tpu/ops/fused_layer.py:445",
@@ -3177,7 +3284,21 @@ def kernel_summary(out: dict) -> dict:
         **per_launch,
         "bound_by": max(("bytes", "operations"), key=lambda by: sum(
             c["bound_ms"] * n for c, n in step_cases if c["bound_by"] == by)),
-        "library_ms": None, "shape": "mean per launch over the 16 layers of a B=64 step"}]}
+        "library_ms": None, "shape": "mean per launch over the 16 layers of a B=64 step"}
+
+
+def _rel_attention_line(phase: dict) -> dict:
+    # The Parakeet cell is B3's main path; its longest batch takes most of
+    # the kernel's time, so the line gives that batch and lists the others.
+    case = max(phase["cases"], key=lambda c: c["longest"])
+    return {
+        "name": "rel_attention", "route": "cuda", "source": "tone_tpu_torch/csrc/rel_attention.cu",
+        "replaces": None, "launches": phase["forward_launches"],
+        "max_abs_err": max(c["max_abs_diff"] for c in phase["cases"]),
+        **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share")},
+        "library_ms": None, "shape": f"16 rows, longest {case['longest']} frames, H 8, dh 128",
+        "cases": [{k: c[k] for k in ("longest", "launches", "ms", "bound_ms", "bound_share",
+                                     "max_share", "rms_share")} for c in phase["cases"]]}
 
 
 def run_phase(fn, *args) -> dict:
@@ -3201,8 +3322,8 @@ def main() -> int:
                              "and profile each non-fused call twice")
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated phases to run after the build (default: "
-                             "all; the kernel summary line needs kernels, serve, "
-                             "fused_kernels, fused_step and bulk)")
+                             "all; the kernel summary line holds the kernels whose "
+                             "phases ran)")
     # the artifacts phase's processes
     parser.add_argument("--exported-child", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--export-child", metavar="DIR", help=argparse.SUPPRESS)
@@ -3231,8 +3352,9 @@ def main() -> int:
     for name in phases:
         fn = globals()["phase_" + name]
         out[name] = run_phase(fn, args.profile_check) if name == "beam_decode" else run_phase(fn)
-    if {"kernels", "serve", "fused_kernels", "fused_step", "bulk"} <= set(out):
-        emit(kernel_summary(out))
+    summary = kernel_summary(out)
+    if summary["kernels"]:
+        emit(summary)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -386,6 +386,8 @@ class FastConformerConfig:
     frontend: FastConformerFrontendConfig = field(default_factory=FastConformerFrontendConfig)
     encoder: FastConformerEncoderConfig = field(default_factory=FastConformerEncoderConfig)
     vocabulary: tuple[str, ...] = field(default_factory=stand_in_vocabulary)
+    # "float32" runs on the CPU only: on a CUDA device the attention kernel
+    # computes in bf16 and apply_fastconformer refuses any other dtype.
     compute_dtype: Literal["bfloat16", "float32"] = "bfloat16"
     architecture: str = FASTCONFORMER_CTC
 

@@ -33,11 +33,10 @@ Traced (``profiling``), the forward records the spans
 ``fastconformer.frontend``, ``fastconformer.subsampling``,
 ``fastconformer.layer`` (id: the layer's index) and ``fastconformer.head``
 around their dispatch, and the counts ``fastconformer.frames`` (the rows'
-valid output frames), ``fastconformer.attention_pairs`` (the sum over rows
-and layers of valid frames squared) and
-``fastconformer.attention_pairs_computed`` (the query-key pairs the
-attention computes, ``layers.rel_blocks``: per layer and block, the rows
-it computes x its queries x the keys).
+valid output frames) and ``fastconformer.attention_pairs`` (the sum over
+rows and layers of valid frames squared); each layer's attention counts
+``fastconformer.attention_pairs_computed``, the query-key pairs its path
+computed (``layers.rel_mhsa_blocked``).
 """
 
 from __future__ import annotations
@@ -196,12 +195,19 @@ def apply_fastconformer(variables: dict, config: FastConformerConfig, audio: tor
     Returns:
         (logprobs (B, T_out, vocab + 1) float32, each row's valid output
         frames).  Frames past a row's are not the row's.
+
+    Raises:
+        ValueError: ``config.compute_dtype`` other than bfloat16 on a CUDA
+            device (the attention kernel computes in bf16), before any work.
     """
+    dev = audio.device
+    dtype = getattr(torch, config.compute_dtype)
+    if dev.type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(f"apply_fastconformer: on a CUDA device the attention kernel computes "
+                         f"in bf16; compute_dtype {config.compute_dtype!r} runs on the CPU only")
     host = torch.as_tensor(np.asarray(lengths), dtype=torch.int64).cpu()
     out_lens = [config.output_frames(int(n)) for n in host]
     longest = max(out_lens)
-    dev = audio.device
-    dtype = getattr(torch, config.compute_dtype)
     e = config.encoder
     enc = variables["params"]["encoder"]
 
@@ -227,7 +233,4 @@ def apply_fastconformer(variables: dict, config: FastConformerConfig, audio: tor
         profiling.count("fastconformer.frames", sum(out_lens))
         profiling.count("fastconformer.attention_pairs",
                         e.n_layers * sum(n * n for n in out_lens))
-        keys, blocks = L.rel_blocks(out_lens, e.n_heads)
-        profiling.count("fastconformer.attention_pairs_computed",
-                        e.n_layers * keys * sum((hi - lo) * (i1 - i0) for i0, i1, lo, hi in blocks))
     return logprobs, out_lens

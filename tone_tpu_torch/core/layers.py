@@ -66,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from tone_tpu_torch import profiling
+from tone_tpu_torch.ops.rel_attention import plan_rel_attention, rel_attention
 
 Params = dict[str, Any]
 
@@ -587,13 +588,14 @@ def mhsa_blocked(
 
 
 # Score elements (float32) of one query block of the relative-position
-# attention: ``rel_mhsa_blocked`` cuts its queries so that a block's
-# (B, H, Q, Q + T - 1) position scores stay near this (512 MB).
+# attention's plain version: ``rel_attention_plain`` cuts its queries so
+# that a block's (B, H, Q, Q + T - 1) position scores stay near this
+# (512 MB).
 REL_SCORE_BLOCK_ELEMENTS = 1 << 27
 
 
 def rel_blocks(lengths: Sequence[int], n_heads: int) -> tuple[int, list[tuple[int, int, int, int]]]:
-    """How ``rel_mhsa_blocked`` cuts a batch whose rows hold ``lengths``
+    """How ``rel_attention_plain`` cuts a batch whose rows hold ``lengths``
     valid frames: (keys, [(i0, i1, lo, hi)]).  Keys are the longest row's
     frames rounded up to a multiple of 8 (every product then has aligned
     rows; the extra keys are masked).  Queries ``i0 .. i1 - 1`` of each
@@ -625,8 +627,7 @@ def rel_mhsa_blocked(
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Transformer-XL relative-position attention over the full context
-    (NeMo's ``RelPositionMultiHeadAttention``, the FastConformer's), in
-    blocks of queries (``rel_blocks``).
+    (NeMo's ``RelPositionMultiHeadAttention``, the FastConformer's).
 
     The score of query ``i`` and key ``j`` is
     ``((q_i + u) . k_j + (q_i + v) . p_{i-j}) / sqrt(d_head)`` with
@@ -634,15 +635,15 @@ def rel_mhsa_blocked(
     ``pos_bias_u``, ``v`` = ``pos_bias_v`` (H, d_head); ``q + u`` and
     ``q + v`` are summed in float32, divided by ``sqrt(d_head)`` there and
     rounded once to the compute dtype, so the float32 products are the
-    scores.  A block of queries ``i0 .. i1 - 1`` takes the positions it
-    needs, ``i1 - 1`` down to ``i0 - (keys - 1)``; its product with them
-    is shifted into (queries, keys) by a strided view
-    (``(q_i + v) . p_{i-j}`` sits at column ``(i1 - 1 - i) + j``), not
-    copied.  Keys at or past a row's length take -1e4 before the float32
+    scores.  Keys at or past a row's length are masked before the float32
     softmax; the weights are rounded to the compute dtype before the
-    product with V.  Queries past the longest row, and the rows that
-    ``rel_blocks`` skips in a block, are not computed: those output rows
-    are zero.  Products run on ``_product``.
+    product with V.  The projections run on ``_product``.
+
+    Between the projections, on the card the hand-written kernel
+    (``ops/rel_attention.py``: one launch, autograd off, bf16) and on the
+    CPU its plain version ``rel_attention_plain``.  Under
+    ``profiling.recording()`` each call counts the query-key pairs the
+    path computed, per row, as ``fastconformer.attention_pairs_computed``.
 
     Args:
         x: (B, T, D) the layer's normed input.
@@ -655,26 +656,72 @@ def rel_mhsa_blocked(
         (B, T, D) in the compute dtype.
     """
     b, t, d = x.shape
-    d_head = d // n_heads
     tq = max(host_lengths)
-    tk, blocks = rel_blocks(host_lengths, n_heads)
     xs = x[:, :tq]
+    q = linear(p["linear_q"], xs, compute_dtype)
+    k = linear(p["linear_k"], xs, compute_dtype)
+    v = linear(p["linear_v"], xs, compute_dtype)
+    pe = linear(p["linear_pos"], pos.to(compute_dtype), compute_dtype)   # (2 tq - 1, D)
+    if x.is_cuda:
+        ctx = rel_attention(q, k, v, pe, p["pos_bias_u"].float().contiguous(),
+                            p["pos_bias_v"].float().contiguous(), host_lengths, n_heads)
+        pairs = plan_rel_attention(host_lengths).pairs
+    else:
+        ctx = rel_attention_plain(q, k, v, pe, p["pos_bias_u"], p["pos_bias_v"], n_heads=n_heads,
+                                  lengths=lengths, host_lengths=host_lengths,
+                                  compute_dtype=compute_dtype)
+        keys, blocks = rel_blocks(host_lengths, n_heads)
+        pairs = keys * sum((hi - lo) * (i1 - i0) for i0, i1, lo, hi in blocks)
+    if profiling.recording():
+        profiling.count("fastconformer.attention_pairs_computed", pairs)
+    return F.pad(linear(p["linear_out"], ctx, compute_dtype), (0, 0, 0, t - tq))
+
+
+def rel_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pe: torch.Tensor,
+    bias_u: torch.Tensor,
+    bias_v: torch.Tensor,
+    *,
+    n_heads: int,
+    lengths: torch.Tensor,
+    host_lengths: Sequence[int],
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """The kernel's function (``ops/rel_attention.py``) in blocked PyTorch:
+    q, k, v (B, Tq, D) and pe (2 Tq - 1, D) in the compute dtype (position
+    ``Tq - 1 - r`` at row ``r``), the biases (H, d_head); returns the
+    context (B, Tq, D) in the compute dtype.
+
+    Queries are cut in blocks (``rel_blocks``).  A block of queries ``i0 ..
+    i1 - 1`` takes the positions it needs, ``i1 - 1`` down to ``i0 - (keys -
+    1)``; its product with them is shifted into (queries, keys) by a strided
+    view (``(q_i + v) . p_{i-j}`` sits at column ``(i1 - 1 - i) + j``), not
+    copied.  Keys at or past a row's length take -1e4 before the float32
+    softmax.  Queries past the longest row, and the rows that ``rel_blocks``
+    skips in a block, are not computed: those output rows are zero.
+    Products run on ``_product``.
+    """
+    b, tq, d = q.shape
+    d_head = d // n_heads
+    tk, blocks = rel_blocks(host_lengths, n_heads)
 
     def heads(proj):  # (B, Tq, D) -> (B, H, Tk, dh), the keys past Tq zero
         proj = proj.reshape(b, tq, n_heads, d_head).transpose(1, 2)
         return F.pad(proj, (0, 0, 0, tk - tq)).contiguous()
 
-    q = linear(p["linear_q"], xs, compute_dtype).reshape(b, tq, n_heads, d_head).float()
-    k_t = heads(linear(p["linear_k"], xs, compute_dtype)).transpose(-1, -2)   # (B, H, dh, Tk)
-    v = heads(linear(p["linear_v"], xs, compute_dtype))
+    qf = q.reshape(b, tq, n_heads, d_head).float()
+    k_t = heads(k).transpose(-1, -2)                                         # (B, H, dh, Tk)
+    v = heads(v)
     # Positions tq - 1 down to -(tq - 1), then zeros for the padded keys and
     # the aligned rows of each block's position product.
-    pe = linear(p["linear_pos"], F.pad(pos, (0, 0, 0, tk - tq + 7)).to(compute_dtype),
-                compute_dtype).reshape(tq + tk + 6, n_heads, d_head).transpose(0, 1)
+    pe = F.pad(pe, (0, 0, 0, tk - tq + 7)).reshape(tq + tk + 6, n_heads, d_head).transpose(0, 1)
     scale = math.sqrt(d_head)
-    q_u = ((q + p["pos_bias_u"].float()) / scale).to(compute_dtype).transpose(1, 2)
-    q_v = ((q + p["pos_bias_v"].float()) / scale).to(compute_dtype).permute(2, 0, 1, 3)
-    masked = (torch.arange(tk, device=x.device)[None] >= lengths[:, None])[:, None, None]
+    q_u = ((qf + bias_u.float()) / scale).to(compute_dtype).transpose(1, 2)
+    q_v = ((qf + bias_v.float()) / scale).to(compute_dtype).permute(2, 0, 1, 3)
+    masked = (torch.arange(tk, device=q.device)[None] >= lengths[:, None])[:, None, None]
     out = []
     for i0, i1, lo, hi in blocks:
         nq, rows = i1 - i0, hi - lo
@@ -688,5 +735,4 @@ def rel_mhsa_blocked(
         attn = torch.softmax(scores, dim=-1).to(compute_dtype)
         ctx = _mm(attn, v[lo:hi]).to(compute_dtype)                          # (rows, H, nq, dh)
         out.append(F.pad(ctx, (0, 0, 0, 0, 0, 0, lo, b - hi)))
-    ctx = torch.cat(out, dim=2).transpose(1, 2).reshape(b, tq, d)
-    return F.pad(linear(p["linear_out"], ctx, compute_dtype), (0, 0, 0, t - tq))
+    return torch.cat(out, dim=2).transpose(1, 2).reshape(b, tq, d)
