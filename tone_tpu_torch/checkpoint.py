@@ -180,8 +180,11 @@ def convert_fastconformer_state_dict(state_dict: Mapping[str, Any],
     ``encoder.pre_encode.conv.*``, ``encoder.pre_encode.out``,
     ``encoder.layers.{i}.*``, ``decoder.decoder_layers.0``; the
     preprocessor's buffers are not read) as the port's variables
-    (``core.fastconformer``).  Values are torch tensors or numpy arrays;
-    tensors stay on their device, in float32.  Linears and 1x1 convolutions
+    (``core.fastconformer``); a transducer's (``EncDecRNNTBPEModel``)
+    ``decoder.prediction.embed``, ``decoder.prediction.dec_rnn.lstm.*_l{i}``
+    and ``joint.enc``, ``joint.pred``, ``joint.joint_net.2`` in the CTC
+    head's place (``core.transducer``).  Values are torch tensors or numpy
+    arrays; tensors stay on their device, in float32.  Linears and 1x1 convolutions
     become ``(in, out)`` matrices; other convolutions keep torch's layout."""
     sd = {k: torch.as_tensor(v).detach().float() for k, v in state_dict.items()}
 
@@ -228,9 +231,18 @@ def convert_fastconformer_state_dict(state_dict: Mapping[str, Any],
             "norm_out": ln(f"{pfx}.norm_out")})
         stats.append({"conv_bn": {"mean": sd[f"{bn}.running_mean"],
                                   "var": sd[f"{bn}.running_var"]}})
-    head = lin("decoder.decoder_layers.0")
-    return {"params": {"encoder": {"pre_encode": pre, "layers": tuple(layers)}, "head": head},
-            "batch_stats": {"layers": tuple(stats)}}
+    params = {"encoder": {"pre_encode": pre, "layers": tuple(layers)}}
+    if config.transducer is None:
+        params["head"] = lin("decoder.decoder_layers.0")
+    else:
+        rnn = "decoder.prediction.dec_rnn.lstm"
+        lstm = tuple({part: {"w": sd[f"{rnn}.weight_{part}_l{i}"].t().contiguous(),
+                             "b": sd[f"{rnn}.bias_{part}_l{i}"]} for part in ("ih", "hh")}
+                     for i in range(config.transducer.pred_rnn_layers))
+        params["decoder"] = {"embed": sd["decoder.prediction.embed.weight"], "lstm": lstm}
+        params["joint"] = {"enc": lin("joint.enc"), "pred": lin("joint.pred"),
+                           "out": lin("joint.joint_net.2")}
+    return {"params": params, "batch_stats": {"layers": tuple(stats)}}
 
 
 def convert_torch_state_dict(state_dict: Mapping[str, Any],

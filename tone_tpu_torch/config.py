@@ -252,15 +252,19 @@ class ToneConfig:
 
 
 # ---------------------------------------------------------------------------
-# FastConformer CTC (NVIDIA NeMo's ``EncDecCTCModelBPE`` with a FastConformer
-# encoder, e.g. Parakeet-CTC-1.1B): an offline-only architecture.  Its
+# FastConformer (NVIDIA NeMo's FastConformer encoder): offline-only
+# architectures with a CTC head (``EncDecCTCModelBPE``, e.g.
+# Parakeet-CTC-1.1B) or a token-and-duration transducer
+# (``EncDecRNNTBPEModel`` with a TDT loss, e.g. Parakeet-TDT-0.6B-v3).  The
 # defaults are the published Parakeet-CTC-1.1B (model card
 # huggingface.co/nvidia/parakeet-ctc-1.1b and NeMo's FastConformer CTC
-# recipe); the released ``tokenizer.model`` is not in the repository, so the
-# default vocabulary is a stand-in table of 1,024 pieces.
+# recipe); ``parakeet_tdt_config()`` is Parakeet-TDT-0.6B-v3.  The released
+# ``tokenizer.model`` files are not in the repository, so the vocabularies
+# are stand-in tables of the published sizes.
 # ---------------------------------------------------------------------------
 
 FASTCONFORMER_CTC = "fastconformer_ctc"
+FASTCONFORMER_TDT = "fastconformer_tdt"
 PIECE_SPACE = "▁"  # SentencePiece's word-start mark
 
 # NeMo's settings that the port runs in one form only: per-feature
@@ -378,10 +382,37 @@ class FastConformerEncoderConfig:
 
 
 @dataclass(frozen=True)
+class TransducerConfig:
+    """A token-and-duration transducer over the encoder (Xu et al., ICML
+    2023, arXiv:2304.06795), as NeMo builds it (defaults: Parakeet-TDT-0.6B-v3,
+    from NeMo's FastConformer-TDT recipe): ``RNNTDecoder`` with
+    ``blank_as_pad`` (an embedding of the vocabulary and the blank, the
+    blank's row zero, then ``pred_rnn_layers`` LSTMs of ``pred_hidden``),
+    ``RNNTJoint`` (encoder and prediction projections to ``joint_hidden``,
+    ReLU, a linear to the vocabulary, the blank and one logit per
+    duration) and greedy TDT decoding with at most ``max_symbols`` tokens
+    on one frame."""
+
+    pred_hidden: int = 640
+    pred_rnn_layers: int = 2
+    joint_hidden: int = 640
+    durations: tuple[int, ...] = (0, 1, 2, 3, 4)
+    max_symbols: int = 10
+
+    def __post_init__(self):
+        if not self.durations or min(self.durations) < 0:
+            raise ValueError(f"durations {self.durations} must be frame counts >= 0")
+        if self.max_symbols < 1:
+            raise ValueError(f"max_symbols {self.max_symbols} must be at least 1")
+
+
+@dataclass(frozen=True)
 class FastConformerConfig:
-    """A FastConformer CTC model (defaults: Parakeet-CTC-1.1B).  Offline
-    only: the port transcribes it through ``OfflineTranscriber(...,
-    use_offline_forward=True)``; the streaming engine refuses it."""
+    """A FastConformer model (defaults: Parakeet-CTC-1.1B): a CTC head, or
+    with ``transducer`` (and ``architecture`` ``fastconformer_tdt``) a
+    token-and-duration transducer.  Offline only: the port transcribes it
+    through ``OfflineTranscriber(..., use_offline_forward=True)``; the
+    streaming engine refuses it."""
 
     frontend: FastConformerFrontendConfig = field(default_factory=FastConformerFrontendConfig)
     encoder: FastConformerEncoderConfig = field(default_factory=FastConformerEncoderConfig)
@@ -390,14 +421,17 @@ class FastConformerConfig:
     # computes in bf16 and apply_fastconformer refuses any other dtype.
     compute_dtype: Literal["bfloat16", "float32"] = "bfloat16"
     architecture: str = FASTCONFORMER_CTC
+    transducer: TransducerConfig | None = None  # the TDT's; None under a CTC head
 
     # No edge padding and no time bias: a phrase's frames start at the call's.
     padding = 0
     mean_time_bias = 0.0
 
     def __post_init__(self):
-        if self.architecture != FASTCONFORMER_CTC:
-            raise ValueError(f"architecture {self.architecture!r} is not {FASTCONFORMER_CTC!r}")
+        wanted = FASTCONFORMER_CTC if self.transducer is None else FASTCONFORMER_TDT
+        if self.architecture != wanted:
+            raise ValueError(f"architecture {self.architecture!r} is not {wanted!r} "
+                             f"(transducer: {self.transducer})")
 
     @property
     def vocab_size_with_blank(self) -> int:
@@ -424,6 +458,8 @@ class FastConformerConfig:
         d = dataclasses.asdict(self)
         for part, fixed in FASTCONFORMER_FIXED.items():
             d[part].update(fixed)
+        if self.transducer is None:
+            del d["transducer"]   # a CTC model's dict as before transducers
         return d
 
     @classmethod
@@ -438,8 +474,24 @@ class FastConformerConfig:
                                      f"(only {value!r})")
         if "vocabulary" in d:
             d["vocabulary"] = tuple(d["vocabulary"])
+        if d.get("transducer") is not None:
+            t = dict(d["transducer"])
+            if "durations" in t:
+                t["durations"] = tuple(t["durations"])
+            d["transducer"] = TransducerConfig(**t)
         return cls(frontend=FastConformerFrontendConfig(**parts["frontend"]),
                    encoder=FastConformerEncoderConfig(**parts["encoder"]), **d)
+
+
+def parakeet_tdt_config() -> FastConformerConfig:
+    """Parakeet-TDT-0.6B-v3 (huggingface.co/nvidia/parakeet-tdt-0.6b-v3):
+    24 FastConformer layers of d_model 1,024 over 128 mels, the transducer
+    of ``TransducerConfig()``, and a stand-in table of 8,192 pieces."""
+    return FastConformerConfig(
+        frontend=FastConformerFrontendConfig(n_mels=128),
+        encoder=FastConformerEncoderConfig(feat_in=128, n_layers=24),
+        vocabulary=stand_in_vocabulary(8192), architecture=FASTCONFORMER_TDT,
+        transducer=TransducerConfig())
 
 
 ModelConfig = ToneConfig | FastConformerConfig
@@ -448,7 +500,7 @@ ModelConfig = ToneConfig | FastConformerConfig
 def config_from_dict(d: dict[str, Any]) -> ModelConfig:
     """The config a ``to_dict`` wrote: a ``FastConformerConfig`` where its
     ``architecture`` says so, else a ``ToneConfig``."""
-    if d.get("architecture") == FASTCONFORMER_CTC:
+    if d.get("architecture") in (FASTCONFORMER_CTC, FASTCONFORMER_TDT):
         return FastConformerConfig.from_dict(d)
     return ToneConfig.from_dict(d)
 
@@ -457,5 +509,5 @@ def require_streaming(config, who: str) -> None:
     """Raise where ``config`` is an offline-only architecture."""
     if isinstance(config, FastConformerConfig):
         raise ValueError(
-            f"{who} streams T-one's chunk step; a FastConformer CTC model is offline only: "
+            f"{who} streams T-one's chunk step; a FastConformer model is offline only: "
             "transcribe it with OfflineTranscriber(variables, config, use_offline_forward=True)")

@@ -1,6 +1,9 @@
-"""The FastConformer CTC model (NeMo's ``EncDecCTCModelBPE`` with a
-FastConformer encoder, e.g. Parakeet-CTC-1.1B): an offline forward over
-whole calls, built on the port's shared primitives (``core/layers.py``).
+"""The FastConformer encoder and its CTC head (NeMo's ``EncDecCTCModelBPE``
+with a FastConformer encoder, e.g. Parakeet-CTC-1.1B): an offline forward
+over whole calls, built on the port's shared primitives
+(``core/layers.py``).  ``encode_fastconformer`` ends at the encoder's
+output, which ``apply_fastconformer`` gives the CTC head and
+``core/transducer.py`` a token-and-duration transducer.
 
 Per call: the centred log-mel frontend with per-feature normalization
 (``frontend.log_mel_centered``), the ``dw_striding`` subsampling (a k3 s2
@@ -52,9 +55,10 @@ from tone_tpu_torch import profiling
 from tone_tpu_torch.config import FastConformerConfig
 from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.core.frontend import get_frontend_constants, log_mel_centered
+from tone_tpu_torch.core.transducer import init_transducer_params
 
-__all__ = ["apply_fastconformer", "init_fastconformer_params", "parameter_count",
-           "positional_encoding"]
+__all__ = ["apply_fastconformer", "encode_fastconformer", "init_fastconformer_params",
+           "parameter_count", "positional_encoding"]
 
 Params = L.Params
 INT16_MAX = 32767.0
@@ -63,7 +67,9 @@ INT16_MAX = 32767.0
 def init_fastconformer_params(gen: torch.Generator, config: FastConformerConfig) -> dict:
     """All variables ``{"params", "batch_stats"}`` in float32, drawn from
     ``gen`` (torch-default bounds: uniform in 1/sqrt(fan-in)); LayerNorms
-    and BatchNorms at their initial values, the position biases at 0."""
+    and BatchNorms at their initial values, the position biases at 0.  A
+    transducer config gets the prediction network and joint
+    (``transducer.init_transducer_params``) in the CTC head's place."""
     e = config.encoder
     d, c, h = e.d_model, e.subsampling_conv_channels, e.n_heads
     stages = tuple({"dw": L.init_conv(gen, c, 1, (3, 3)), "pw": L.init_conv(gen, c, c, (1, 1))}
@@ -89,15 +95,18 @@ def init_fastconformer_params(gen: torch.Generator, config: FastConformerConfig)
                      "pw2": L.init_linear(gen, d, d)},
             "norm_ff2": L.init_layernorm(d), "ff2": ff(), "norm_out": L.init_layernorm(d)})
         stats.append({"conv_bn": bn_stats})
-    head = L.init_linear(gen, d, config.vocab_size_with_blank)
-    return {"params": {"encoder": {"pre_encode": pre, "layers": tuple(layers)}, "head": head},
-            "batch_stats": {"layers": tuple(stats)}}
+    params = {"encoder": {"pre_encode": pre, "layers": tuple(layers)}}
+    if config.transducer is None:
+        params["head"] = L.init_linear(gen, d, config.vocab_size_with_blank)
+    else:
+        params.update(init_transducer_params(gen, config))
+    return {"params": params, "batch_stats": {"layers": tuple(stats)}}
 
 
 def parameter_count(config: FastConformerConfig) -> int:
     """The model's parameters as NeMo counts them: every weight, bias, norm
-    scale and shift and position bias; BatchNorm's running statistics are
-    not parameters."""
+    scale and shift and position bias (and a transducer's embedding, LSTMs
+    and joint); BatchNorm's running statistics are not parameters."""
     e = config.encoder
     d, c, f = e.d_model, e.subsampling_conv_channels, e.d_ff
     pre = (9 * c + c) + (e.n_subsampling_convs - 1) * ((9 * c + c) + (c * c + c)) \
@@ -106,7 +115,13 @@ def parameter_count(config: FastConformerConfig) -> int:
              + 2 * (d * f + f + f * d + d)              # two feed-forwards
              + 4 * (d * d + d) + d * d + 2 * d          # q, k, v, out, pos, u and v
              + (d * 2 * d + 2 * d) + (d * e.conv_kernel_size + d) + 2 * d + (d * d + d))
-    head = (d + 1) * config.vocab_size_with_blank
+    t = config.transducer
+    if t is None:
+        head = (d + 1) * config.vocab_size_with_blank
+    else:
+        p, j, v = t.pred_hidden, t.joint_hidden, config.vocab_size_with_blank
+        head = (v * p + t.pred_rnn_layers * (4 * p * 2 * p + 2 * 4 * p)    # embedding, LSTMs
+                + (d + 1) * j + (p + 1) * j + (j + 1) * (v + len(t.durations)))   # joint
     return pre + e.n_layers * layer + head
 
 
@@ -181,10 +196,10 @@ def _to_device(lengths: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_fastconformer(variables: dict, config: FastConformerConfig, audio: torch.Tensor,
-                        lengths: Sequence[int] | np.ndarray | torch.Tensor,
-                        ) -> tuple[torch.Tensor, list[int]]:
-    """Whole calls through the FastConformer CTC model, each row as if alone.
+def encode_fastconformer(variables: dict, config: FastConformerConfig, audio: torch.Tensor,
+                         lengths: Sequence[int] | np.ndarray | torch.Tensor,
+                         ) -> tuple[torch.Tensor, list[int]]:
+    """Whole calls through the FastConformer encoder, each row as if alone.
 
     Args:
         audio: (B, T_samples) on the device of ``variables``: an integer
@@ -193,8 +208,8 @@ def apply_fastconformer(variables: dict, config: FastConformerConfig, audio: tor
         lengths: (B,) valid samples of each row, on the host.
 
     Returns:
-        (logprobs (B, T_out, vocab + 1) float32, each row's valid output
-        frames).  Frames past a row's are not the row's.
+        (the encoder's output (B, T_out, d_model) in the compute dtype, each
+        row's valid output frames).  Frames past a row's are not the row's.
 
     Raises:
         ValueError: ``config.compute_dtype`` other than bfloat16 on a CUDA
@@ -226,11 +241,26 @@ def apply_fastconformer(variables: dict, config: FastConformerConfig, audio: tor
     for i, (p, stats) in enumerate(zip(enc["layers"], variables["batch_stats"]["layers"])):
         with profiling.span("fastconformer.layer", i):
             x = _layer(p, stats, x, pos, out_dev, pad, out_lens, config, dtype)
-    with profiling.span("fastconformer.head"):
-        logits = L.linear(variables["params"]["head"], x, torch.float32)
-        logprobs = torch.log_softmax(logits.float(), dim=-1)
     if profiling.recording():
         profiling.count("fastconformer.frames", sum(out_lens))
         profiling.count("fastconformer.attention_pairs",
                         e.n_layers * sum(n * n for n in out_lens))
+    return x, out_lens
+
+
+@torch.no_grad()
+def apply_fastconformer(variables: dict, config: FastConformerConfig, audio: torch.Tensor,
+                        lengths: Sequence[int] | np.ndarray | torch.Tensor,
+                        ) -> tuple[torch.Tensor, list[int]]:
+    """Whole calls through the FastConformer CTC model
+    (``encode_fastconformer``, then the head), each row as if alone.
+
+    Returns:
+        (logprobs (B, T_out, vocab + 1) float32, each row's valid output
+        frames).  Frames past a row's are not the row's.
+    """
+    x, out_lens = encode_fastconformer(variables, config, audio, lengths)
+    with profiling.span("fastconformer.head"):
+        logits = L.linear(variables["params"]["head"], x, torch.float32)
+        logprobs = torch.log_softmax(logits.float(), dim=-1)
     return logprobs, out_lens

@@ -100,7 +100,8 @@ def _split_ff(ff: Mapping) -> Mapping:
 def to_fastconformer_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A FastConformer's variables (``core.fastconformer``) as NeMo's
     ``EncDecCTCModelBPE`` state_dict of contiguous CPU tensors (dtypes
-    kept): the inverse of ``checkpoint.convert_fastconformer_state_dict``."""
+    kept), or ``EncDecRNNTBPEModel``'s where they hold a transducer: the
+    inverse of ``checkpoint.convert_fastconformer_state_dict``."""
     params, stats = variables["params"], variables["batch_stats"]
     pre = params["encoder"]["pre_encode"]
     out: dict[str, torch.Tensor] = {}
@@ -127,7 +128,18 @@ def to_fastconformer_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
         _put_bn(out, f"{pfx}.conv.batch_norm", layer["conv"]["bn"], lstats["conv_bn"])
         _put_pw_conv1d(out, f"{pfx}.conv.pointwise_conv2", layer["conv"]["pw2"])
         _put_ln(out, f"{pfx}.norm_out", layer["norm_out"])
-    _put_pw_conv1d(out, "decoder.decoder_layers.0", params["head"])
+    if "head" in params:
+        _put_pw_conv1d(out, "decoder.decoder_layers.0", params["head"])
+        return out
+    out["decoder.prediction.embed.weight"] = _cpu(params["decoder"]["embed"])
+    for i, layer in enumerate(params["decoder"]["lstm"]):
+        for part in ("ih", "hh"):
+            out[f"decoder.prediction.dec_rnn.lstm.weight_{part}_l{i}"] = _t(layer[part]["w"])
+            out[f"decoder.prediction.dec_rnn.lstm.bias_{part}_l{i}"] = _cpu(layer[part]["b"])
+    joint = params["joint"]
+    for name, key in (("joint.enc", "enc"), ("joint.pred", "pred"),
+                      ("joint.joint_net.2", "out")):
+        _put_lin(out, name, joint[key])
     return out
 
 

@@ -15,7 +15,14 @@ A ``FastConformerConfig`` (an offline-only architecture) runs
 with zeros to a bucketed multiple of one output frame's samples, and go to
 the forward with their lengths, so that it computes each row as if alone;
 its phrases are split at the blank alone and decoded with its vocabulary;
-frames are 80 ms.  The mesh and word times are T-one's only.
+frames are 80 ms.  With a transducer (``config.transducer``) the forward is
+the encoder and the greedy TDT loop on the device
+(``core.transducer.greedy_tdt``; on a card its steps replay as a CUDA
+graph, ``GraphedLoop``), and a batch comes back as the loop's record
+instead of logprobs: a phrase ends where 20 or more frames pass with no
+token and is cut at 2,000 frames (the splitter's frame counts), its pieces
+joined with the word-start mark read as a space, its times from the token
+frames.  The mesh and word times are T-one's only.
 
 Utterances are sorted by length and padded to a bucketed number of chunks;
 the zero chunks that pad a row are processed as audio, as the JAX
@@ -70,7 +77,8 @@ import torch
 from tone_tpu_torch import profiling
 from tone_tpu_torch.acoustic import cast_params_for_inference
 from tone_tpu_torch.config import LABELS, FastConformerConfig, ModelConfig
-from tone_tpu_torch.core.fastconformer import apply_fastconformer
+from tone_tpu_torch.core import transducer
+from tone_tpu_torch.core.fastconformer import apply_fastconformer, encode_fastconformer
 from tone_tpu_torch.core.model import apply_offline, apply_streaming, init_streaming_state
 from tone_tpu_torch.device import resolve_device
 from tone_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, replicate
@@ -130,6 +138,9 @@ class _Model:
     forward: str
     splitter: StreamingLogprobSplitter
     labels: str | tuple[str, ...]  # the default greedy decoder's vocabulary
+    # The transcriber's method (launched batch, results) that turns a batch
+    # into phrases, by name: split and decode logprobs, or a transducer's tokens.
+    finish: str = "_finish"
 
 
 @dataclass
@@ -149,6 +160,9 @@ class OfflineTranscriber:
 
     def __post_init__(self):
         self._model = self._choose_model()
+        if self._model.finish != "_finish" and self.decoder is not None:
+            raise ValueError("OfflineTranscriber: a transducer decodes on the device; "
+                             "decoder= takes a CTC decoder")
         if self.mesh is None:
             devices = [resolve_device(self.device)]
         else:
@@ -162,7 +176,7 @@ class OfflineTranscriber:
                 raise ValueError(f"batch_size {self.batch_size} must be a multiple of the "
                                  f"mesh '{DATA_AXIS}' axis size {len(devices)}")
         self.device = devices[0]
-        if self.decoder is None:
+        if self.decoder is None and self._model.finish == "_finish":
             from tone_tpu_torch.decoder import GreedyCTCDecoder
 
             self.decoder = GreedyCTCDecoder(self._model.labels)
@@ -170,6 +184,9 @@ class OfflineTranscriber:
             cast_params_for_inference(self.variables, self.config), devices)))
         self.variables = self._shards[0][1]
         pinned = self.device.type == "cuda"
+        # a transducer's loop on a card: its steps replayed as a CUDA graph
+        self._graphed = (transducer.GraphedLoop(self.variables, self.config)
+                         if pinned and self._model.finish == "_finish_tokens" else None)
         self._staging = _HostRing(pinned)   # the batches' unpadded samples
         self._host_logprobs = _HostRing(pinned)   # the logprobs' copies back (a card's)
 
@@ -181,9 +198,13 @@ class OfflineTranscriber:
                                  "streaming step): pass use_offline_forward=True")
             if self.mesh is not None or self.word_timestamps:
                 raise ValueError("OfflineTranscriber: the mesh and word times run T-one only")
-            # rows in output frames, split at the blank alone
-            return _Model(1, self._assemble_calls, "_fastconformer_forward",
-                          StreamingLogprobSplitter(cfg.vocab_size_with_blank, silence_classes=1),
+            # rows in output frames, split at the blank alone (a transducer's
+            # at frames with no token)
+            splitter = StreamingLogprobSplitter(cfg.vocab_size_with_blank, silence_classes=1)
+            if cfg.transducer is not None:
+                return _Model(1, self._assemble_calls, "_transducer_forward", splitter,
+                              cfg.vocabulary, "_finish_tokens")
+            return _Model(1, self._assemble_calls, "_fastconformer_forward", splitter,
                           cfg.vocabulary)
         # rows in chunks, split at the space and the blank
         return _Model(cfg.encoder.chunk_size, self._assemble_chunks,
@@ -211,16 +232,28 @@ class OfflineTranscriber:
         audio, lengths = batch
         return apply_fastconformer(variables, self.config, audio, lengths)[0]
 
+    def _transducer_forward(self, variables, batch) -> torch.Tensor:
+        """((B, T_samples) audio, its host lengths) -> the greedy TDT loop's
+        record (B, steps, fields)."""
+        audio, lengths = batch
+        enc, frames = encode_fastconformer(variables, self.config, audio, lengths)
+        return transducer.greedy_tdt(variables, self.config, enc, frames, self._graphed)
+
     def transcribe(self, audios: Sequence[np.ndarray]) -> list[list[TextPhrase]]:
         """Transcribe utterances (int16-range integer arrays); order kept."""
         results: list[list[TextPhrase] | None] = [None] * len(audios)
-        self._pipelined(audios, lambda launched: self._finish(launched, results))
+        finish = getattr(self, self._model.finish)
+        self._pipelined(audios, lambda launched: finish(launched, results))
         return results  # type: ignore[return-value]
 
     def logprobs(self, audios: Sequence[np.ndarray]) -> list[np.ndarray]:
         """Per-utterance (frames, vocab+1) float32 logprobs, batched and
         bucketed as in ``transcribe`` but not split or decoded: the acoustic
-        half of forced alignment (``python -m tone_tpu_torch align``)."""
+        half of forced alignment (``python -m tone_tpu_torch align``).  A
+        transducer has none."""
+        if self._model.finish != "_finish":
+            raise ValueError("OfflineTranscriber.logprobs: a transducer gives tokens, not "
+                             "per-frame logprobs")
         out: list[np.ndarray | None] = [None] * len(audios)
 
         def finish(launched):
@@ -378,6 +411,25 @@ class OfflineTranscriber:
         it = iter(zip(texts, word_spans))
         for i, phrases in split:
             results[i] = [self._to_text_phrase(p, *next(it)) for p in phrases]
+
+    def _finish_tokens(self, launched, results) -> None:
+        """A transducer's launched batch: each row's emitted tokens split
+        into phrases at 20 or more frames with no token (cut at 2,000
+        frames), each phrase's pieces joined."""
+        idx, row_frames, record = self._wait(launched)
+        batch = launched[-1]
+        cfg = self.config
+        with profiling.span("offline.split", batch):
+            for row, i in enumerate(idx):
+                tokens, frames = transducer.emitted(record[row], cfg.vocab_size_with_blank - 1)
+                speech = np.zeros(row_frames[row], bool)
+                speech[frames] = True
+                phrases = []
+                for start, end in self._model.splitter._phrase_spans(speech, is_last=True):
+                    inside = tokens[(frames >= start) & (frames < end)]
+                    phrases.append(TextPhrase(transducer.tokens_text(inside, cfg.vocabulary),
+                                              *phrase_times(cfg, start, end)))
+                results[i] = phrases
 
     def forward_offline(self, audio: np.ndarray) -> list[TextPhrase]:
         """One utterance; duck-types ``StreamingCTCPipeline`` (so
