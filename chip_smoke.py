@@ -222,10 +222,25 @@ prints one JSON line per phase:
             version's time; then the full-width ``FastConformerConfig()``
             (random weights, seed 0) through ``OfflineTranscriber`` on 16
             calls: 42 launches, one per layer, in the forward.
+21. norm_junction  kernel B4 (``ops/norm_junction.py``) at the Parakeet
+            cell's four batches (``dev/torch_norm_junction_ab.py``: 16 rows of
+            the batch's longest frames, d_model 1,024, every row computed) in
+            each of its four forms: one launch per call, held to its plain
+            version within the card tests' limits (x' bit-equal, each normed
+            element within one bf16 ulp or 2^-20 of its row's RMS; the share
+            one ulp off), its device time per launch (profiler) beside its
+            bound (10, 10, 8 or 4 bytes per element at 3.35 TB/s), the plain
+            version's time and, as a yardstick only,
+            ``torch.nn.functional.layer_norm``'s on the bf16 sum; then the
+            full-width ``FastConformerConfig()`` (random weights, seed 0)
+            through ``OfflineTranscriber`` on 16 calls and
+            ``parakeet_tdt_config()`` on 2: 4 x 42 + 1 = 169 and 4 x 24 + 1 = 97
+            launches a forward.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line holds B1 where the kernels, serve and bulk phases ran, B2
-where fused_kernels and fused_step ran, B3 where rel_attention ran).
+where fused_kernels and fused_step ran, B3 where rel_attention ran, B4
+where norm_junction ran).
 Every phase line after ``device`` gives the phase's seconds as
 ``phase_s``.  Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
@@ -3202,9 +3217,64 @@ def phase_rel_attention() -> dict:
             "forward_calls": len(calls), "forward_layers": cfg.encoder.n_layers}
 
 
+NORM_JUNCTION_ITERS = 50
+
+
+def _norm_junction_ab():
+    """dev/torch_norm_junction_ab.py as a module: the cell's batches, the
+    junction's inputs, forms, bounds and the check against the plain
+    version."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "dev" / "torch_norm_junction_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_norm_junction_ab", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_norm_junction() -> dict:
+    """B4 at the Parakeet cell's batches, then in full-width forwards (see
+    the module docstring, 21)."""
+    import torch
+
+    from tone_tpu_torch.config import FastConformerConfig, parakeet_tdt_config
+    from tone_tpu_torch.core.fastconformer import init_fastconformer_params
+    from tone_tpu_torch.offline import OfflineTranscriber
+    from tone_tpu_torch.ops import norm_junction as NJ
+
+    ab = _norm_junction_ab()
+    NJ.norm_junction.launches = 0
+    cases = ab.time_cases(ab.cell_batches(), [0, 1, 2, 3], NORM_JUNCTION_ITERS)
+    for case in cases:
+        if not case["within_limits"]:
+            raise AssertionError(f"norm_junction at {case['frames']} frames: {case}")
+    rng = np.random.default_rng(0)
+    forwards = {}
+    for name, cfg, n_calls in (("ctc", FastConformerConfig(), 16),
+                               ("tdt", parakeet_tdt_config(), 2)):
+        variables = init_fastconformer_params(torch.Generator().manual_seed(0), cfg)
+        calls = [rng.integers(-8000, 8000, n).astype(np.int16)
+                 for n in rng.integers(5 * 16000, 60 * 16000, n_calls)]
+        tr = OfflineTranscriber(variables, cfg, batch_size=16, use_offline_forward=True)
+        NJ.norm_junction.launches = 0
+        tr.transcribe(calls)
+        launches = NJ.norm_junction.launches
+        if launches != 4 * cfg.encoder.n_layers + 1:
+            raise AssertionError(f"norm_junction: {launches} launches in a {name} forward of "
+                                 f"{cfg.encoder.n_layers} layers")
+        forwards[name] = {"launches": launches, "calls": n_calls,
+                          "layers": cfg.encoder.n_layers}
+        del tr, variables
+        torch.cuda.empty_cache()
+    return {"phase": "norm_junction", "kernel": "norm_junction", "d_model": ab.D_MODEL,
+            "ms": "device time per launch (torch.profiler), back to back",
+            "cases": cases, "forwards": forwards}
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
-          "recipes", "bench", "deploy", "hub", "rel_attention")
+          "recipes", "bench", "deploy", "hub", "rel_attention", "norm_junction")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -3217,6 +3287,8 @@ def kernel_summary(out: dict) -> dict:
         lines.append(_fused_layer_line(out))
     if "rel_attention" in out:
         lines.append(_rel_attention_line(out["rel_attention"]))
+    if "norm_junction" in out:
+        lines.append(_norm_junction_line(out["norm_junction"]))
     return {"kernels": lines}
 
 
@@ -3299,6 +3371,20 @@ def _rel_attention_line(phase: dict) -> dict:
         "library_ms": None, "shape": f"16 rows, longest {case['longest']} frames, H 8, dh 128",
         "cases": [{k: c[k] for k in ("longest", "launches", "ms", "bound_ms", "bound_share",
                                      "max_share", "rms_share")} for c in phase["cases"]]}
+
+
+def _norm_junction_line(phase: dict) -> dict:
+    # The single form at the longest batch: three of a layer's four launches.
+    case = max((c for c in phase["cases"] if c["form"] == "single"), key=lambda c: c["frames"])
+    return {
+        "name": "norm_junction", "route": "cuda", "source": "tone_tpu_torch/csrc/norm_junction.cu",
+        "replaces": None, "launches": phase["forwards"]["ctc"]["launches"],
+        "max_ulps": max(c["max_ulps"] for c in phase["cases"]),
+        **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                                "library_ms")},
+        "shape": f"16 rows x {case['frames']} frames, d_model 1,024, single form",
+        "cases": [{k: c[k] for k in ("frames", "form", "ms", "bound_ms", "bound_share",
+                                     "max_ulps", "share_one_ulp")} for c in phase["cases"]]}
 
 
 def run_phase(fn, *args) -> dict:

@@ -26,6 +26,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -33,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tone_tpu_torch import profiling
 from tone_tpu_torch.bridge import tree_leaves
@@ -56,6 +58,7 @@ from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.decoder import GreedyCTCDecoder
 from tone_tpu_torch.interop import to_fastconformer_state_dict, to_torch_state_dict
 from tone_tpu_torch.offline import OfflineTranscriber
+from tone_tpu_torch.ops import norm_junction as NJ
 from tone_tpu_torch.splitter import StreamingLogprobSplitter
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -227,6 +230,113 @@ def test_query_blocks_skip_finished_rows(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# The residual-and-norm junction's plain version (ops/norm_junction.py).
+# ---------------------------------------------------------------------------
+
+
+def _junction_inputs(dtype, t=11, ty=11, d=64, seed=4):
+    """A layer's sublayer input h, the residual x, a linear and two norms."""
+    gen = torch.Generator().manual_seed(seed)
+    lin = L.init_linear(gen, 48, d)
+    lin["b"] = torch.randn(d, generator=gen)
+    norms = [{"scale": 1 + 0.1 * torch.randn(d, generator=gen),
+              "bias": 0.1 * torch.randn(d, generator=gen)} for _ in range(2)]
+    h = torch.randn(3, ty, 48, generator=gen).to(dtype)
+    x = (4 * torch.randn(3, t, d, generator=gen)).to(dtype)
+    return lin, norms, h, x
+
+
+JUNCTION_CASES = {"ff_single": (0.5, 11, False, False), "attention_short_y": (1.0, 7, False, False),
+                  "ff2_double": (0.5, 11, True, True), "ff2_last": (0.5, 11, True, False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", JUNCTION_CASES)
+def test_plain_junction_is_the_eager_composition(case, dtype):
+    """``linear_product`` then the plain junction equals, bit for bit, the
+    eager path it replaces: ``linear`` (its ``_add_bias``), the scale, the
+    residual add over the frames y covers, and ``layernorm`` (after FF2
+    ``norm_out``, then the next layer's ``norm_ff1`` on its output)."""
+    scale, ty, layer_end, double = JUNCTION_CASES[case]
+    lin, (norm, nxt), h, x = _junction_inputs(dtype, ty=ty)
+    r = L.linear(lin, h, dtype)
+    if scale != 1.0:
+        r = r * scale
+    summed = x + F.pad(r, (0, 0, 0, x.shape[1] - ty))
+    launches = NJ.norm_junction.launches
+    a, b = NJ.norm_junction(L.linear_product(lin, h, dtype), lin["b"], x, scale, norm,
+                            nxt if double else None, layer_end=layer_end)
+    assert NJ.norm_junction.launches == launches
+    if not layer_end:
+        expect = (summed, L.layernorm(norm, summed))
+    else:
+        out = L.layernorm(norm, summed)
+        expect = (out, L.layernorm(nxt, out) if double else None)
+    assert a.dtype == dtype and torch.equal(a, expect[0])
+    assert (b is None) == (expect[1] is None)
+    assert b is None or torch.equal(b, expect[1])
+    assert torch.equal(NJ.layer_norm(x, norm), L.layernorm(norm, x))
+
+
+def test_junction_bytes_per_layer():
+    """Bytes per element of d_model: y read (4), x read (2), two bf16
+    outputs written (4), or one (the last layer), or x read and one
+    written (the first layer's norm alone)."""
+    assert NJ.JUNCTION_BYTES == {"norm": 4, "single": 10, "double": 10, "last": 8}
+    assert NJ.layer_bytes(1) == 4 + 30 + 8
+    assert NJ.layer_bytes(42) == 4 + 42 * 30 + 41 * 10 + 8
+
+
+def _faulty_launch(fault):
+    """``fault``: the inputs of a single junction (bf16, D 64) with one
+    thing wrong, and the words of the error."""
+    lin, (norm, _), h, x = _junction_inputs(torch.bfloat16)
+    y, bias = L.linear_product(lin, h, torch.bfloat16), lin["b"]
+    if fault == "x_dtype":
+        return dict(y=y, bias=bias, x=x.float(), norm=norm), "x must be torch.bfloat16"
+    if fault == "y_dtype":
+        return dict(y=y.to(torch.bfloat16), bias=bias, x=x, norm=norm), "y must be torch.float32"
+    if fault == "y_longer_than_x":
+        return dict(y=torch.cat([y, y], 1), bias=bias, x=x, norm=norm), "Ty <= T"
+    if fault == "bias_shape":
+        return dict(y=y, bias=bias[:32], x=x, norm=norm), "bias must be"
+    if fault == "norm_shape":
+        return dict(y=y, bias=bias, x=x, norm={"scale": norm["scale"][:8],
+                                             "bias": norm["bias"]}), "gamma1 must be"
+    if fault == "x_not_contiguous":
+        return dict(y=y, bias=bias, x=x.transpose(0, 1).contiguous().transpose(0, 1),
+                    norm=norm), "contiguous"
+    if fault == "d_model_not_a_multiple_of_8":
+        return dict(y=y[..., :60].contiguous(), bias=bias[:60], x=x[..., :60].contiguous(),
+                    norm=norm), "d_model 60"
+    if fault == "d_model_too_wide":
+        wide = torch.zeros(3, 11, 4096)
+        return dict(y=wide, bias=torch.zeros(4096), x=wide.to(torch.bfloat16),
+                    norm=norm), "d_model 4096"
+    return dict(y=y, bias=bias, x=x, norm=norm), "CUDA device"
+
+
+@pytest.mark.parametrize("fault", ["x_dtype", "y_dtype", "y_longer_than_x", "bias_shape",
+                                   "norm_shape", "x_not_contiguous",
+                                   "d_model_not_a_multiple_of_8", "d_model_too_wide",
+                                   "on_the_cpu"])
+def test_kernel_wrapper_refuses(fault):
+    """The kernel's launcher refuses what the kernel does not take, each
+    fault by name, before it looks for the card (here it never finds one);
+    nothing is launched or counted."""
+    args, words = _faulty_launch(fault)
+    launches = NJ.norm_junction.launches
+    with torch.no_grad(), pytest.raises(ValueError, match=re.escape(words)):
+        NJ._launch("single", args["x"], args["norm"], y=args["y"], bias=args["bias"],
+                   scale=0.5)
+    with pytest.raises(RuntimeError, match="autograd"):
+        NJ._launch("single", args["x"], args["norm"], y=args["y"], bias=args["bias"])
+    assert NJ.norm_junction.launches == launches
+    with pytest.raises(ValueError, match="layer_end"):
+        NJ.norm_junction(args["y"], args["bias"], args["x"], 0.5, args["norm"], args["norm"])
+
+
+# ---------------------------------------------------------------------------
 # The whole forward, and batches against rows alone.
 # ---------------------------------------------------------------------------
 
@@ -382,11 +492,15 @@ def test_spans_and_counters_under_record():
     assert [e.id for e in spans if e.name == "fastconformer.layer"] == [0, 1]
     # the CPU runs the plain version: each layer counts rel_blocks' pairs
     keys, blocks = L.rel_blocks(out_lens, cfg.encoder.n_heads)
+    # the junctions' bytes of the valid frames: per element of d_model the
+    # first norm alone (4), three single junctions a layer (10 each), one
+    # double (10) and the last layer's norm_out (8)
     assert counts == {
         "fastconformer.frames": sum(out_lens),
         "fastconformer.attention_pairs": 2 * sum(n * n for n in out_lens),
         "fastconformer.attention_pairs_computed":
-            2 * keys * sum((hi - lo) * (i1 - i0) for i0, i1, lo, hi in blocks)}
+            2 * keys * sum((hi - lo) * (i1 - i0) for i0, i1, lo, hi in blocks),
+        "fastconformer.junction_bytes": sum(out_lens) * 64 * (4 + 2 * 30 + 10 + 8)}
     assert counts["fastconformer.attention_pairs"] <= \
         counts["fastconformer.attention_pairs_computed"]
 

@@ -16,10 +16,17 @@ layers in NeMo's order::
     x <- x + 1/2 FF2(LN(x));  x <- LN_out(x)
 
 with FF = Linear -> Swish -> Linear, RelMHSA the relative-position
-attention over the full context (``layers.rel_mhsa_blocked``) and Conv =
-pointwise d -> 2d, GLU, padded frames set to 0, depthwise k (centred),
-BatchNorm, Swish, pointwise d -> d; then the CTC head (a linear to the
-vocabulary and the blank, the last class) and a float32 log-softmax.
+attention over the full context (``layers.rel_attention_context`` and its
+output projection) and Conv = pointwise d -> 2d, GLU, padded frames set to
+0, depthwise k (centred), BatchNorm, Swish, pointwise d -> d; then the CTC
+head (a linear to the vocabulary and the blank, the last class) and a
+float32 log-softmax.
+
+Between sublayers the junction (``ops/norm_junction.py``) takes the
+sublayer's last product without its bias and does the bias, the 1/2, the
+residual add and the next LayerNorm (after FF2: ``LN_out``, then the next
+layer's ``LN_ff1``) in one pass: one kernel launch on the card, the eager
+composition on the CPU.
 
 Each row is computed as if it were alone: the forward takes every row's
 length, the frontend normalizes over the row's own frames, the
@@ -37,9 +44,11 @@ Traced (``profiling``), the forward records the spans
 ``fastconformer.layer`` (id: the layer's index) and ``fastconformer.head``
 around their dispatch, and the counts ``fastconformer.frames`` (the rows'
 valid output frames) and ``fastconformer.attention_pairs`` (the sum over
-rows and layers of valid frames squared); each layer's attention counts
-``fastconformer.attention_pairs_computed``, the query-key pairs its path
-computed (``layers.rel_mhsa_blocked``).
+rows and layers of valid frames squared), and ``fastconformer.junction_bytes``
+(the bytes the junctions must move for the rows' valid frames,
+``norm_junction.layer_bytes`` per element of d_model); each layer's
+attention counts ``fastconformer.attention_pairs_computed``, the
+query-key pairs its path computed (``layers.rel_attention_context``).
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from tone_tpu_torch.config import FastConformerConfig
 from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.core.frontend import get_frontend_constants, log_mel_centered
 from tone_tpu_torch.core.transducer import init_transducer_params
+from tone_tpu_torch.ops.norm_junction import layer_bytes, layer_norm, norm_junction
 
 __all__ = ["apply_fastconformer", "encode_fastconformer", "init_fastconformer_params",
            "parameter_count", "positional_encoding"]
@@ -161,30 +171,44 @@ def _subsampling(p: Params, config: FastConformerConfig, feats: torch.Tensor,
 
 
 def _feed_forward(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
-    return L.linear(p["linear2"], L.silu(L.linear(p["linear1"], x, dtype)), dtype)
+    """The feed-forward up to its last product, without that product's
+    bias (float32): the junction after it adds the bias."""
+    return L.linear_product(p["linear2"], L.silu(L.linear(p["linear1"], x, dtype)), dtype)
 
 
 def _conv_module(p: Params, stats: Params, x: torch.Tensor, pad: torch.Tensor,
                  kernel: int, dtype) -> torch.Tensor:
+    """The convolution module up to its last product, without that
+    product's bias (float32)."""
     y = L.glu(L.linear(p["pw1"], x, dtype), dim=-1).masked_fill_(pad[:, :, None], 0.0)
     y = F.pad(y, (0, 0, (kernel - 1) // 2, (kernel - 1) // 2))
     y = L.conv1d_nhc(p["dw"], y, stride=1, groups=y.shape[-1], compute_dtype=dtype)
     y, _ = L.batchnorm(p["bn"], stats, y, channel_axis=2)
-    return L.linear(p["pw2"], L.silu(y), dtype)
+    return L.linear_product(p["pw2"], L.silu(y), dtype)
 
 
-def _layer(p: Params, stats: Params, x: torch.Tensor, pos: torch.Tensor,
+def _layer(p: Params, stats: Params, x: torch.Tensor, h: torch.Tensor, pos: torch.Tensor,
            lengths: torch.Tensor, pad: torch.Tensor, host_lengths: list[int],
-           config: FastConformerConfig, dtype) -> torch.Tensor:
+           config: FastConformerConfig, dtype, next_norm: Params | None,
+           ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer on the residual stream ``x`` and ``h``, its first input
+    (``LN_ff1(x)``, which the junction before made).  Each sublayer ends in
+    its bias-less product; the junction (``ops/norm_junction.py``) adds the
+    bias, scales, adds the residual and norms for the next sublayer.  The
+    last junction ends the layer with ``norm_out`` and norms the output by
+    ``next_norm``, the next layer's ``norm_ff1``.  Returns (the layer's
+    output, the next layer's first input; None without ``next_norm``)."""
     e = config.encoder
-    x = x + _feed_forward(p["ff1"], L.layernorm(p["norm_ff1"], x), dtype) * 0.5
-    x = x + L.rel_mhsa_blocked(p["att"], L.layernorm(p["norm_att"], x), pos,
-                               n_heads=e.n_heads, lengths=lengths, host_lengths=host_lengths,
-                               compute_dtype=dtype)
-    x = x + _conv_module(p["conv"], stats["conv_bn"], L.layernorm(p["norm_conv"], x), pad,
-                         e.conv_kernel_size, dtype)
-    x = x + _feed_forward(p["ff2"], L.layernorm(p["norm_ff2"], x), dtype) * 0.5
-    return L.layernorm(p["norm_out"], x)
+    x, h = norm_junction(_feed_forward(p["ff1"], h, dtype), p["ff1"]["linear2"]["b"], x, 0.5,
+                         p["norm_att"])
+    ctx = L.rel_attention_context(p["att"], h, pos, n_heads=e.n_heads, lengths=lengths,
+                                  host_lengths=host_lengths, compute_dtype=dtype)
+    x, h = norm_junction(L.linear_product(p["att"]["linear_out"], ctx, dtype),
+                         p["att"]["linear_out"]["b"], x, 1.0, p["norm_conv"])
+    x, h = norm_junction(_conv_module(p["conv"], stats["conv_bn"], h, pad, e.conv_kernel_size,
+                                      dtype), p["conv"]["pw2"]["b"], x, 1.0, p["norm_ff2"])
+    return norm_junction(_feed_forward(p["ff2"], h, dtype), p["ff2"]["linear2"]["b"], x, 0.5,
+                         p["norm_out"], next_norm, layer_end=True)
 
 
 def _to_device(lengths: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -238,13 +262,18 @@ def encode_fastconformer(variables: dict, config: FastConformerConfig, audio: to
         out_dev = _to_device(torch.tensor(out_lens, dtype=torch.int64), dev)
         pad = _padding(out_dev, x.shape[1])
         pos = positional_encoding(longest, e.d_model, dev)
-    for i, (p, stats) in enumerate(zip(enc["layers"], variables["batch_stats"]["layers"])):
+        layers = enc["layers"]
+        h = layer_norm(x, layers[0]["norm_ff1"])
+    for i, (p, stats) in enumerate(zip(layers, variables["batch_stats"]["layers"])):
         with profiling.span("fastconformer.layer", i):
-            x = _layer(p, stats, x, pos, out_dev, pad, out_lens, config, dtype)
+            next_norm = layers[i + 1]["norm_ff1"] if i + 1 < len(layers) else None
+            x, h = _layer(p, stats, x, h, pos, out_dev, pad, out_lens, config, dtype, next_norm)
     if profiling.recording():
         profiling.count("fastconformer.frames", sum(out_lens))
         profiling.count("fastconformer.attention_pairs",
                         e.n_layers * sum(n * n for n in out_lens))
+        profiling.count("fastconformer.junction_bytes",
+                        sum(out_lens) * e.d_model * layer_bytes(len(layers)))
     return x, out_lens
 
 

@@ -188,6 +188,16 @@ def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16,
     return _add_bias(y, p["b"].float(), compute_dtype, tc)
 
 
+def linear_product(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x @ w`` in float32, the product ``linear`` adds its bias to, for a
+    caller that adds the bias in a later pass of its own
+    (``ops/norm_junction.py``)."""
+    w = p["w"]
+    if compute_dtype != torch.float32:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    return _product(x, w, _products_on_tensor_cores(x, w))
+
+
 def _add_bias(y: torch.Tensor, b: torch.Tensor, compute_dtype,
               tensor_cores: bool) -> torch.Tensor:
     """``y + b`` in float32, rounded once to the compute dtype: on the
@@ -627,7 +637,34 @@ def rel_mhsa_blocked(
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Transformer-XL relative-position attention over the full context
-    (NeMo's ``RelPositionMultiHeadAttention``, the FastConformer's).
+    (NeMo's ``RelPositionMultiHeadAttention``, the FastConformer's):
+    ``rel_attention_context``, then the output projection, its frames past
+    the longest row zero.
+
+    Args:
+        x: (B, T, D) the layer's normed input.
+        pos, lengths, host_lengths: as ``rel_attention_context`` takes them.
+
+    Returns:
+        (B, T, D) in the compute dtype.
+    """
+    ctx = rel_attention_context(p, x, pos, n_heads=n_heads, lengths=lengths,
+                                host_lengths=host_lengths, compute_dtype=compute_dtype)
+    return F.pad(linear(p["linear_out"], ctx, compute_dtype), (0, 0, 0, x.shape[1] - ctx.shape[1]))
+
+
+def rel_attention_context(
+    p: Params,
+    x: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    n_heads: int,
+    lengths: torch.Tensor,
+    host_lengths: Sequence[int],
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """The relative-position attention of ``rel_mhsa_blocked`` up to the
+    input of its output projection.
 
     The score of query ``i`` and key ``j`` is
     ``((q_i + u) . k_j + (q_i + v) . p_{i-j}) / sqrt(d_head)`` with
@@ -653,9 +690,8 @@ def rel_mhsa_blocked(
         host_lengths: the same on the host.
 
     Returns:
-        (B, T, D) in the compute dtype.
+        the context (B, max(host_lengths), D) in the compute dtype.
     """
-    b, t, d = x.shape
     tq = max(host_lengths)
     xs = x[:, :tq]
     q = linear(p["linear_q"], xs, compute_dtype)
@@ -674,7 +710,7 @@ def rel_mhsa_blocked(
         pairs = keys * sum((hi - lo) * (i1 - i0) for i0, i1, lo, hi in blocks)
     if profiling.recording():
         profiling.count("fastconformer.attention_pairs_computed", pairs)
-    return F.pad(linear(p["linear_out"], ctx, compute_dtype), (0, 0, 0, t - tq))
+    return ctx
 
 
 def rel_attention_plain(
