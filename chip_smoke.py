@@ -235,7 +235,19 @@ prints one JSON line per phase:
             full-width ``FastConformerConfig()`` (random weights, seed 0)
             through ``OfflineTranscriber`` on 16 calls and
             ``parakeet_tdt_config()`` on 2: 4 x 42 + 1 = 169 and 4 x 24 + 1 = 97
-            launches a forward.
+            launches a forward.  Then at the attention decoder's shapes
+            (``dev/torch_norm_junction_ab.py decoder_cases``: 16 rows of one
+            position, a decode step, and of 8, the prefill; scale 1; the
+            single form into the next sublayer's norm and into LN_final,
+            and the norm alone), each held to the plain version within the
+            same limits, with its device time beside its bound; and
+            ``canary_config()`` (random weights, seed 0) through
+            ``OfflineTranscriber`` on 3 calls in 6 windows, batches of 4,
+            once to capture the decoder's graph and once counted from zero:
+            B4 launches 4 x 32 + 1 = 129 times an encoder forward, 1 + 3 x 8
+            = 25 a prefill and 25 a step (every step inside the graph's
+            replays, so the host calls it 129 + 25 times a batch), B3 32
+            times an encoder forward, counted on the card by the profiler.
 
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line holds B1 where the kernels, serve and bulk phases ran, B2
@@ -3242,6 +3254,7 @@ def phase_norm_junction() -> dict:
     from tone_tpu_torch.core.fastconformer import init_fastconformer_params
     from tone_tpu_torch.offline import OfflineTranscriber
     from tone_tpu_torch.ops import norm_junction as NJ
+    from tone_tpu_torch.ops import rel_attention as RA
 
     ab = _norm_junction_ab()
     NJ.norm_junction.launches = 0
@@ -3267,9 +3280,71 @@ def phase_norm_junction() -> dict:
                           "layers": cfg.encoder.n_layers}
         del tr, variables
         torch.cuda.empty_cache()
+    decoder = ab.decoder_cases(NORM_JUNCTION_ITERS)
+    for case in decoder:
+        if not case["within_limits"]:
+            raise AssertionError(f"norm_junction at the decoder's {case['shape']}: {case}")
     return {"phase": "norm_junction", "kernel": "norm_junction", "d_model": ab.D_MODEL,
             "ms": "device time per launch (torch.profiler), back to back",
-            "cases": cases, "forwards": forwards}
+            "cases": cases, "forwards": forwards, "decoder_cases": decoder,
+            "aed": _aed_launches(NJ, RA)}
+
+
+def _aed_launches(NJ, RA) -> dict:
+    """B4's and B3's launches in ``canary_config()``'s transcriber, counted
+    from zero on the host and, by the profiler, on the card (see the module
+    docstring, 21)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tone_tpu_torch.config import canary_config
+    from tone_tpu_torch.core.fastconformer import init_fastconformer_params
+    from tone_tpu_torch.offline import OfflineTranscriber
+
+    cfg = canary_config()
+    variables = init_fastconformer_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    calls = [rng.integers(-8000, 8000, s * 16000).astype(np.int16) for s in (50, 12, 90)]
+    tr = OfflineTranscriber(variables, cfg, batch_size=4, use_offline_forward=True)
+    steps: list[int] = []
+    wait = tr._wait
+
+    def counting(launched):
+        idx, windows, record = wait(launched)
+        steps.append(int(record.shape[1]))
+        return idx, windows, record
+    tr._wait = counting
+    tr.transcribe(calls)                      # captures the decoder's graph
+    steps.clear()
+    NJ.norm_junction.launches = RA.rel_attention.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.transcribe(calls)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type().name == "CUDA"]
+    a = cfg.aed
+    per = {"encoder_forward": 4 * cfg.encoder.n_layers + 1, "prefill": 1 + 3 * a.n_layers,
+           "step": 1 + 3 * a.n_layers}
+    out = {"calls_s": [50, 12, 90], "windows": 6, "batch_size": 4, "steps": list(steps),
+           "per": per, "rel_attention_per_encoder_forward": cfg.encoder.n_layers,
+           "norm_junction_host": NJ.norm_junction.launches,
+           "norm_junction_device": sum("norm_junction_kernel" in n for n in names),
+           "rel_attention_host": RA.rel_attention.launches,
+           "rel_attention_device": sum("rel_attention_kernel" in n for n in names)}
+    out["norm_junction_host_expected"] = len(steps) * (per["encoder_forward"] + per["prefill"])
+    out["norm_junction_device_expected"] = sum(
+        per["encoder_forward"] + per["prefill"] + per["step"] * n for n in steps)
+    out["rel_attention_expected"] = len(steps) * cfg.encoder.n_layers
+    del tr, variables
+    torch.cuda.empty_cache()
+    if (out["norm_junction_host"], out["norm_junction_device"], out["rel_attention_host"],
+            out["rel_attention_device"]) != (out["norm_junction_host_expected"],
+                                             out["norm_junction_device_expected"],
+                                             out["rel_attention_expected"],
+                                             out["rel_attention_expected"]):
+        raise AssertionError(f"norm_junction and rel_attention launches in canary: {out}")
+    return out
 
 
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
@@ -3384,7 +3459,14 @@ def _norm_junction_line(phase: dict) -> dict:
                                 "library_ms")},
         "shape": f"16 rows x {case['frames']} frames, d_model 1,024, single form",
         "cases": [{k: c[k] for k in ("frames", "form", "ms", "bound_ms", "bound_share",
-                                     "max_ulps", "share_one_ulp")} for c in phase["cases"]]}
+                                     "max_ulps", "share_one_ulp")} for c in phase["cases"]],
+        "decoder_cases": [{k: c[k] for k in ("shape", "case", "frames", "form", "ms", "plain_ms",
+                                             "bound_ms", "bound_share", "max_ulps",
+                                             "share_one_ulp")}
+                          for c in phase.get("decoder_cases", [])],
+        "aed_launches": {k: phase["aed"][k] for k in ("per", "steps", "norm_junction_device",
+                                                      "norm_junction_host")}
+        if "aed" in phase else None}
 
 
 def run_phase(fn, *args) -> dict:

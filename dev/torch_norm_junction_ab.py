@@ -6,6 +6,7 @@ shapes of the benchmark's Parakeet cell, on one GPU; or, with
 that cell on a checkout that has no kernel.
 
     python3 dev/torch_norm_junction_ab.py [--iters 50] [--batches 0 1 2 3]
+    python3 dev/torch_norm_junction_ab.py --decoder [--iters 50]
     python3 dev/torch_norm_junction_ab.py --attribute [--root DIR]
 
 The shapes are the cell's four batches (``dev/torch_rel_attention_ab.py
@@ -27,6 +28,11 @@ alone) gives:
 * the check against the plain version (``against_plain``): x' bit-equal,
   and the normed rows' distance in bf16 ulps (``max_ulps``,
   ``share_one_ulp``) and within the card tests' limit.
+
+``--decoder`` times the kernel at the shapes of the attention decoder
+(``core/aed.py``) instead: 16 rows of one position (a decode step) or of
+8 (the prompt's prefill), d 1,024, scale 1, in the forms the decoder runs
+(``decoder_cases``), with the same fields.
 
 ``--attribute`` runs one warm job of the cell's 64 calls (random full-width
 weights and int16 noise of the calls' lengths) through ``OfflineTranscriber``
@@ -260,6 +266,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--batches", type=int, nargs="*", default=[0, 1, 2, 3])
     ap.add_argument("--attribute", action="store_true")
+    ap.add_argument("--decoder", action="store_true")
     ap.add_argument("--root", type=Path, default=ROOT)
     args = ap.parse_args()
 
@@ -275,7 +282,9 @@ def main() -> int:
         return 0
     sys.path.insert(0, str(ROOT))
     print(json.dumps(_rel_attention_ab().card()), flush=True)
-    for line in time_cases(cell_batches(), args.batches, args.iters):
+    lines = decoder_cases(args.iters) if args.decoder else \
+        time_cases(cell_batches(), args.batches, args.iters)
+    for line in lines:
         print(json.dumps(line), flush=True)
     return 0
 
@@ -315,6 +324,46 @@ def time_cases(batches, indices, iters: int) -> list[dict]:
                               "library_ms": ab.event_ms(library, iters)})
             del inputs, x_sum
         torch.cuda.empty_cache()
+    return lines
+
+
+# The attention decoder's passes (core/aed.py _pass): positions a pass of
+# its 16 rows runs.
+DECODER_SHAPES = {"step": 1, "prefill": 8}
+# The junctions of a decoder pass, as (case, form): after each sublayer
+# (scale 1) into the next one's norm (each layer's norm_cross_att and
+# norm_ff, the next layer's norm_self_att), after the last layer into
+# LN_final, and the first layer's norm_self_att alone on the embedding.
+DECODER_JUNCTIONS = (("into_next_norm", "single"), ("into_final_norm", "single"),
+                     ("first_norm", "norm"))
+
+
+def decoder_cases(iters: int) -> list[dict]:
+    """One line per decoder shape and junction (see the module docstring):
+    each held to the plain version, timed and bounded as ``time_cases``'."""
+    import torch
+
+    ab = _rel_attention_ab()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lines = []
+    with torch.no_grad():
+        for shape, frames in DECODER_SHAPES.items():
+            for case, form in DECODER_JUNCTIONS:
+                inputs = {**junction_inputs(BATCH, frames, D_MODEL, gen), "scale": 1.0}
+
+                def kernel():
+                    return run_form(form, inputs)
+
+                def plain():
+                    return run_form(form, inputs, plain=True)
+
+                ms = ab.device_ms(kernel, iters, "norm_junction_kernel")
+                bound = bound_ms(form, BATCH, frames, D_MODEL)
+                lines.append({"shape": shape, "case": case, "rows": BATCH, "frames": frames,
+                              "d_model": D_MODEL, "form": form, **against_plain(form, inputs),
+                              "ms": ms, "event_ms": ab.event_ms(kernel, iters),
+                              "bound_ms": bound, "bound_by": "bytes",
+                              "bound_share": bound / ms, "plain_ms": ab.event_ms(plain, iters)})
     return lines
 
 

@@ -626,14 +626,15 @@ def test_staging_ring_on_card_waits_for_its_upload(cuda):
     """A staging buffer taken again while its upload still waits behind a
     sleeping kernel: ``take`` returns only once the upload is done, so the
     device receives the first contents."""
-    from tone_tpu_torch.offline import _HostRing, _record_event
+    from tone_tpu_torch.device import record_event
+    from tone_tpu_torch.offline import _HostRing
 
     ring = _HostRing(pinned=True)
     first = ring.take(0, 1 << 20, torch.int16)
     first.copy_(torch.arange(1 << 20, dtype=torch.int32).to(torch.int16))
     torch.cuda._sleep(200_000_000)   # about 0.1 s at the card's clocks
     sent = first.to(cuda, non_blocking=True)
-    events = _record_event(cuda)
+    events = record_event(cuda)
     ring.guard(0, events)
     assert not events[0].query()     # still queued behind the sleep
     again = ring.take(0, 1 << 20, torch.int16)

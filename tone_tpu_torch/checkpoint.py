@@ -35,7 +35,14 @@ import numpy as np
 import torch
 
 from tone_tpu_torch.bridge import tree_map
-from tone_tpu_torch.config import FastConformerConfig, ModelConfig, ToneConfig, config_from_dict
+from tone_tpu_torch.config import (
+    FASTCONFORMER_AED,
+    FASTCONFORMER_CTC,
+    FastConformerConfig,
+    ModelConfig,
+    ToneConfig,
+    config_from_dict,
+)
 
 Params = dict[str, Any]
 
@@ -183,7 +190,14 @@ def convert_fastconformer_state_dict(state_dict: Mapping[str, Any],
     (``core.fastconformer``); a transducer's (``EncDecRNNTBPEModel``)
     ``decoder.prediction.embed``, ``decoder.prediction.dec_rnn.lstm.*_l{i}``
     and ``joint.enc``, ``joint.pred``, ``joint.joint_net.2`` in the CTC
-    head's place (``core.transducer``).  Values are torch tensors or numpy
+    head's place (``core.transducer``); an AED's (``EncDecMultiTaskModel``)
+    ``transf_decoder._embedding.*``, ``transf_decoder._decoder.layers.{i}.*``
+    (``layer_norm_1..3``, ``first_sub_layer`` and ``second_sub_layer``'s
+    ``query_net``, ``key_net``, ``value_net``, ``out_projection``,
+    ``third_sub_layer.dense_in`` and ``dense_out``),
+    ``transf_decoder._decoder.final_layer_norm`` and
+    ``log_softmax.mlp.layer0`` likewise (``core.aed``; NeMo's position
+    table is a buffer, not read).  Values are torch tensors or numpy
     arrays; tensors stay on their device, in float32.  Linears and 1x1 convolutions
     become ``(in, out)`` matrices; other convolutions keep torch's layout."""
     sd = {k: torch.as_tensor(v).detach().float() for k, v in state_dict.items()}
@@ -232,8 +246,27 @@ def convert_fastconformer_state_dict(state_dict: Mapping[str, Any],
         stats.append({"conv_bn": {"mean": sd[f"{bn}.running_mean"],
                                   "var": sd[f"{bn}.running_var"]}})
     params = {"encoder": {"pre_encode": pre, "layers": tuple(layers)}}
-    if config.transducer is None:
+    if config.architecture == FASTCONFORMER_CTC:
         params["head"] = lin("decoder.decoder_layers.0")
+    elif config.architecture == FASTCONFORMER_AED:
+        dec = "transf_decoder._decoder.layers"
+        names = {"linear_q": "query_net", "linear_k": "key_net", "linear_v": "value_net",
+                 "linear_out": "out_projection"}
+        params["aed"] = {
+            "embed": sd["transf_decoder._embedding.token_embedding.weight"],
+            "embed_norm": ln("transf_decoder._embedding.layer_norm"),
+            "layers": tuple({
+                "norm_self_att": ln(f"{dec}.{i}.layer_norm_1"),
+                "self_att": {k: lin(f"{dec}.{i}.first_sub_layer.{n}") for k, n in names.items()},
+                "norm_cross_att": ln(f"{dec}.{i}.layer_norm_2"),
+                "cross_att": {k: lin(f"{dec}.{i}.second_sub_layer.{n}")
+                              for k, n in names.items()},
+                "norm_ff": ln(f"{dec}.{i}.layer_norm_3"),
+                "ff": {"linear1": lin(f"{dec}.{i}.third_sub_layer.dense_in"),
+                       "linear2": lin(f"{dec}.{i}.third_sub_layer.dense_out")},
+            } for i in range(config.aed.n_layers)),
+            "final_norm": ln("transf_decoder._decoder.final_layer_norm"),
+            "head": lin("log_softmax.mlp.layer0")}
     else:
         rnn = "decoder.prediction.dec_rnn.lstm"
         lstm = tuple({part: {"w": sd[f"{rnn}.weight_{part}_l{i}"].t().contiguous(),

@@ -17,6 +17,7 @@ defaults (tone/nn/modules/conformer.py:66-88).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any, Literal
 
@@ -254,17 +255,23 @@ class ToneConfig:
 # ---------------------------------------------------------------------------
 # FastConformer (NVIDIA NeMo's FastConformer encoder): offline-only
 # architectures with a CTC head (``EncDecCTCModelBPE``, e.g.
-# Parakeet-CTC-1.1B) or a token-and-duration transducer
-# (``EncDecRNNTBPEModel`` with a TDT loss, e.g. Parakeet-TDT-0.6B-v3).  The
-# defaults are the published Parakeet-CTC-1.1B (model card
+# Parakeet-CTC-1.1B), a token-and-duration transducer
+# (``EncDecRNNTBPEModel`` with a TDT loss, e.g. Parakeet-TDT-0.6B-v3) or an
+# attention encoder-decoder (``EncDecMultiTaskModel``, e.g. Canary-1B-v2).
+# The defaults are the published Parakeet-CTC-1.1B (model card
 # huggingface.co/nvidia/parakeet-ctc-1.1b and NeMo's FastConformer CTC
-# recipe); ``parakeet_tdt_config()`` is Parakeet-TDT-0.6B-v3.  The released
-# ``tokenizer.model`` files are not in the repository, so the vocabularies
-# are stand-in tables of the published sizes.
+# recipe); ``parakeet_tdt_config()`` is Parakeet-TDT-0.6B-v3 and
+# ``canary_config()`` Canary-1B-v2.  The released ``tokenizer.model`` files
+# are not in the repository, so the vocabularies are stand-in tables of the
+# published sizes.
 # ---------------------------------------------------------------------------
 
 FASTCONFORMER_CTC = "fastconformer_ctc"
 FASTCONFORMER_TDT = "fastconformer_tdt"
+FASTCONFORMER_AED = "fastconformer_aed"
+FASTCONFORMER_ARCHITECTURES = (FASTCONFORMER_CTC, FASTCONFORMER_TDT, FASTCONFORMER_AED)
+# The config part that each architecture but the CTC's needs and no other takes.
+_HEAD_PARTS = ((FASTCONFORMER_TDT, "transducer"), (FASTCONFORMER_AED, "aed"))
 PIECE_SPACE = "▁"  # SentencePiece's word-start mark
 
 # NeMo's settings that the port runs in one form only: per-feature
@@ -407,11 +414,63 @@ class TransducerConfig:
 
 
 @dataclass(frozen=True)
+class AEDConfig:
+    """An attention encoder-decoder's decoder over the encoder (defaults:
+    Canary-1B-v2, huggingface.co/nvidia/canary-1b-v2, and NeMo's
+    ``TransformerDecoder`` recipe where the card is silent): a pre-LN
+    Transformer decoder of ``n_layers`` layers (causal self-attention,
+    cross-attention to the encoder's output, a ReLU feed-forward of
+    ``inner``), NeMo's fixed sinusoidal positions, an untied head over the
+    vocabulary, and greedy decoding from ``prompt`` until ``eos`` or a
+    window's ``max_tokens``.  The special tokens are ids of the vocabulary.
+
+    A call is decoded in consecutive windows of at most ``window_seconds``;
+    a window of s seconds stops after ceil(``max_tokens_per_second`` x s)
+    tokens (``max_tokens``) if it has not emitted ``eos``."""
+
+    n_layers: int = 8
+    hidden: int = 1024
+    inner: int = 4096
+    n_heads: int = 8
+    # <|startofcontext|> <|startoftranscript|> <|emo:undefined|> <|ru|> <|ru|>
+    # <|pnc|> <|noitn|> <|notimestamp|> <|nodiarize|>: ids assumed (the
+    # released tokenizer is not in the repository)
+    prompt: tuple[int, ...] = (7, 4, 16, 62, 62, 5, 9, 11, 13)
+    eos: int = 3
+    window_seconds: float = 40.0
+    max_tokens_per_second: float = 4.0
+    max_positions: int = 1024   # the position table's rows (NeMo's max_sequence_length)
+
+    def __post_init__(self):
+        if self.hidden % self.n_heads:
+            raise ValueError(f"hidden {self.hidden} is not a multiple of {self.n_heads} heads")
+        if len(self.prompt) < 1:
+            raise ValueError("the prompt needs at least one token")
+        if len(self.prompt) >= self.max_positions:
+            raise ValueError(f"a prompt of {len(self.prompt)} tokens leaves no room in "
+                             f"{self.max_positions} positions")
+        if self.window_seconds <= 0 or self.max_tokens_per_second <= 0:
+            raise ValueError(f"window_seconds {self.window_seconds} and max_tokens_per_second "
+                             f"{self.max_tokens_per_second} must be positive")
+
+    @property
+    def d_head(self) -> int:
+        return self.hidden // self.n_heads
+
+    def max_tokens(self, n_samples: int, sample_rate: int) -> int:
+        """The cap of a window of ``n_samples``: ceil(tokens a second x its
+        seconds)."""
+        return math.ceil(self.max_tokens_per_second * n_samples / sample_rate)
+
+
+@dataclass(frozen=True)
 class FastConformerConfig:
     """A FastConformer model (defaults: Parakeet-CTC-1.1B): a CTC head, or
     with ``transducer`` (and ``architecture`` ``fastconformer_tdt``) a
-    token-and-duration transducer.  Offline only: the port transcribes it
-    through ``OfflineTranscriber(..., use_offline_forward=True)``; the
+    token-and-duration transducer, or with ``aed`` (and ``architecture``
+    ``fastconformer_aed``) a Transformer decoder: ``architecture`` is the one
+    decision of the head, which every other module reads.  Offline only: the port transcribes
+    it through ``OfflineTranscriber(..., use_offline_forward=True)``; the
     streaming engine refuses it."""
 
     frontend: FastConformerFrontendConfig = field(default_factory=FastConformerFrontendConfig)
@@ -421,17 +480,26 @@ class FastConformerConfig:
     # computes in bf16 and apply_fastconformer refuses any other dtype.
     compute_dtype: Literal["bfloat16", "float32"] = "bfloat16"
     architecture: str = FASTCONFORMER_CTC
-    transducer: TransducerConfig | None = None  # the TDT's; None under a CTC head
+    transducer: TransducerConfig | None = None  # the TDT's; None under another head
+    aed: AEDConfig | None = None  # the AED's decoder; None under another head
 
     # No edge padding and no time bias: a phrase's frames start at the call's.
     padding = 0
     mean_time_bias = 0.0
 
     def __post_init__(self):
-        wanted = FASTCONFORMER_CTC if self.transducer is None else FASTCONFORMER_TDT
-        if self.architecture != wanted:
-            raise ValueError(f"architecture {self.architecture!r} is not {wanted!r} "
-                             f"(transducer: {self.transducer})")
+        if self.architecture not in FASTCONFORMER_ARCHITECTURES:
+            raise ValueError(f"architecture {self.architecture!r} is not one of "
+                             f"{list(FASTCONFORMER_ARCHITECTURES)}")
+        for architecture, part in _HEAD_PARTS:
+            needed = self.architecture == architecture
+            if needed != (getattr(self, part) is not None):
+                raise ValueError(f"architecture {self.architecture!r} "
+                                 f"{'needs' if needed else 'takes no'} {part} "
+                                 f"({part}: {getattr(self, part)})")
+        if self.aed is not None and self.aed.hidden != self.encoder.d_model:
+            raise ValueError(f"the decoder's hidden {self.aed.hidden} is not the encoder's "
+                             f"d_model {self.encoder.d_model}")
 
     @property
     def vocab_size_with_blank(self) -> int:
@@ -458,8 +526,9 @@ class FastConformerConfig:
         d = dataclasses.asdict(self)
         for part, fixed in FASTCONFORMER_FIXED.items():
             d[part].update(fixed)
-        if self.transducer is None:
-            del d["transducer"]   # a CTC model's dict as before transducers
+        for architecture, part in _HEAD_PARTS:
+            if self.architecture != architecture:
+                del d[part]   # another head's dict as before this part
         return d
 
     @classmethod
@@ -479,6 +548,11 @@ class FastConformerConfig:
             if "durations" in t:
                 t["durations"] = tuple(t["durations"])
             d["transducer"] = TransducerConfig(**t)
+        if d.get("aed") is not None:
+            a = dict(d["aed"])
+            if "prompt" in a:
+                a["prompt"] = tuple(a["prompt"])
+            d["aed"] = AEDConfig(**a)
         return cls(frontend=FastConformerFrontendConfig(**parts["frontend"]),
                    encoder=FastConformerEncoderConfig(**parts["encoder"]), **d)
 
@@ -494,13 +568,24 @@ def parakeet_tdt_config() -> FastConformerConfig:
         transducer=TransducerConfig())
 
 
+def canary_config() -> FastConformerConfig:
+    """Canary-1B-v2 (huggingface.co/nvidia/canary-1b-v2): 32 FastConformer
+    layers of d_model 1,024 over 128 mels, the decoder of ``AEDConfig()``
+    and a stand-in table of 16,384 pieces."""
+    return FastConformerConfig(
+        frontend=FastConformerFrontendConfig(n_mels=128),
+        encoder=FastConformerEncoderConfig(feat_in=128, n_layers=32),
+        vocabulary=stand_in_vocabulary(16384), architecture=FASTCONFORMER_AED,
+        aed=AEDConfig())
+
+
 ModelConfig = ToneConfig | FastConformerConfig
 
 
 def config_from_dict(d: dict[str, Any]) -> ModelConfig:
     """The config a ``to_dict`` wrote: a ``FastConformerConfig`` where its
     ``architecture`` says so, else a ``ToneConfig``."""
-    if d.get("architecture") in (FASTCONFORMER_CTC, FASTCONFORMER_TDT):
+    if d.get("architecture") in FASTCONFORMER_ARCHITECTURES:
         return FastConformerConfig.from_dict(d)
     return ToneConfig.from_dict(d)
 

@@ -2,8 +2,9 @@
 with a FastConformer encoder, e.g. Parakeet-CTC-1.1B): an offline forward
 over whole calls, built on the port's shared primitives
 (``core/layers.py``).  ``encode_fastconformer`` ends at the encoder's
-output, which ``apply_fastconformer`` gives the CTC head and
-``core/transducer.py`` a token-and-duration transducer.
+output, which ``apply_fastconformer`` gives the CTC head,
+``core/transducer.py`` a token-and-duration transducer and ``core/aed.py``
+a Transformer decoder.
 
 Per call: the centred log-mel frontend with per-feature normalization
 (``frontend.log_mel_centered``), the ``dw_striding`` subsampling (a k3 s2
@@ -61,7 +62,8 @@ import torch
 import torch.nn.functional as F
 
 from tone_tpu_torch import profiling
-from tone_tpu_torch.config import FastConformerConfig
+from tone_tpu_torch.config import FASTCONFORMER_CTC, FASTCONFORMER_TDT, FastConformerConfig
+from tone_tpu_torch.core import aed
 from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.core.frontend import get_frontend_constants, log_mel_centered
 from tone_tpu_torch.core.transducer import init_transducer_params
@@ -79,7 +81,8 @@ def init_fastconformer_params(gen: torch.Generator, config: FastConformerConfig)
     ``gen`` (torch-default bounds: uniform in 1/sqrt(fan-in)); LayerNorms
     and BatchNorms at their initial values, the position biases at 0.  A
     transducer config gets the prediction network and joint
-    (``transducer.init_transducer_params``) in the CTC head's place."""
+    (``transducer.init_transducer_params``), an AED config the decoder
+    (``aed.init_aed_params``), in the CTC head's place."""
     e = config.encoder
     d, c, h = e.d_model, e.subsampling_conv_channels, e.n_heads
     stages = tuple({"dw": L.init_conv(gen, c, 1, (3, 3)), "pw": L.init_conv(gen, c, c, (1, 1))}
@@ -106,17 +109,20 @@ def init_fastconformer_params(gen: torch.Generator, config: FastConformerConfig)
             "norm_ff2": L.init_layernorm(d), "ff2": ff(), "norm_out": L.init_layernorm(d)})
         stats.append({"conv_bn": bn_stats})
     params = {"encoder": {"pre_encode": pre, "layers": tuple(layers)}}
-    if config.transducer is None:
+    if config.architecture == FASTCONFORMER_CTC:
         params["head"] = L.init_linear(gen, d, config.vocab_size_with_blank)
-    else:
+    elif config.architecture == FASTCONFORMER_TDT:
         params.update(init_transducer_params(gen, config))
+    else:
+        params.update(aed.init_aed_params(gen, config))
     return {"params": params, "batch_stats": {"layers": tuple(stats)}}
 
 
 def parameter_count(config: FastConformerConfig) -> int:
     """The model's parameters as NeMo counts them: every weight, bias, norm
     scale and shift and position bias (and a transducer's embedding, LSTMs
-    and joint); BatchNorm's running statistics are not parameters."""
+    and joint, or an AED's decoder and head); BatchNorm's running
+    statistics are not parameters."""
     e = config.encoder
     d, c, f = e.d_model, e.subsampling_conv_channels, e.d_ff
     pre = (9 * c + c) + (e.n_subsampling_convs - 1) * ((9 * c + c) + (c * c + c)) \
@@ -126,12 +132,14 @@ def parameter_count(config: FastConformerConfig) -> int:
              + 4 * (d * d + d) + d * d + 2 * d          # q, k, v, out, pos, u and v
              + (d * 2 * d + 2 * d) + (d * e.conv_kernel_size + d) + 2 * d + (d * d + d))
     t = config.transducer
-    if t is None:
+    if config.architecture == FASTCONFORMER_CTC:
         head = (d + 1) * config.vocab_size_with_blank
-    else:
+    elif config.architecture == FASTCONFORMER_TDT:
         p, j, v = t.pred_hidden, t.joint_hidden, config.vocab_size_with_blank
         head = (v * p + t.pred_rnn_layers * (4 * p * 2 * p + 2 * 4 * p)    # embedding, LSTMs
                 + (d + 1) * j + (p + 1) * j + (j + 1) * (v + len(t.durations)))   # joint
+    else:
+        head = aed.parameter_count(config)
     return pre + e.n_layers * layer + head
 
 

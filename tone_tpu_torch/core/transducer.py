@@ -60,6 +60,7 @@ import torch
 
 from tone_tpu_torch import profiling
 from tone_tpu_torch.config import PIECE_SPACE, FastConformerConfig
+from tone_tpu_torch.core import graphs
 from tone_tpu_torch.core import layers as L
 
 __all__ = ["FIELDS", "GraphedLoop", "emitted", "greedy_tdt", "init_transducer_params",
@@ -224,18 +225,7 @@ class GraphedLoop:
 
         self.graph = self._graph(steps, device)
 
-    @staticmethod
-    def _graph(steps, device) -> "torch.cuda.CUDAGraph":
-        """``steps`` captured, after a warm-up on a side stream."""
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            steps()                                  # workspaces allocated
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            steps()
-        return graph
+    _graph = staticmethod(graphs.capture)
 
     def run(self, s: _Loop, min_steps: int) -> torch.Tensor:
         """The steps (steps, ``len(FIELDS)``, B) of a batch's loop ``s`` from

@@ -34,3 +34,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def record_event(device: torch.device) -> list:
+    """An event recorded on ``device``'s current stream, in a list (empty
+    off a card, whose copies have finished when they return)."""
+    if device.type != "cuda":
+        return []
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return [event]

@@ -100,8 +100,9 @@ def _split_ff(ff: Mapping) -> Mapping:
 def to_fastconformer_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A FastConformer's variables (``core.fastconformer``) as NeMo's
     ``EncDecCTCModelBPE`` state_dict of contiguous CPU tensors (dtypes
-    kept), or ``EncDecRNNTBPEModel``'s where they hold a transducer: the
-    inverse of ``checkpoint.convert_fastconformer_state_dict``."""
+    kept), ``EncDecRNNTBPEModel``'s where they hold a transducer or
+    ``EncDecMultiTaskModel``'s where they hold an AED decoder: the inverse
+    of ``checkpoint.convert_fastconformer_state_dict``."""
     params, stats = variables["params"], variables["batch_stats"]
     pre = params["encoder"]["pre_encode"]
     out: dict[str, torch.Tensor] = {}
@@ -131,6 +132,9 @@ def to_fastconformer_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
     if "head" in params:
         _put_pw_conv1d(out, "decoder.decoder_layers.0", params["head"])
         return out
+    if "aed" in params:
+        _put_aed(out, params["aed"])
+        return out
     out["decoder.prediction.embed.weight"] = _cpu(params["decoder"]["embed"])
     for i, layer in enumerate(params["decoder"]["lstm"]):
         for part in ("ih", "hh"):
@@ -141,6 +145,28 @@ def to_fastconformer_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
                       ("joint.joint_net.2", "out")):
         _put_lin(out, name, joint[key])
     return out
+
+
+def _put_aed(out: dict, aed: Mapping) -> None:
+    """An AED's decoder and head under NeMo's ``EncDecMultiTaskModel``
+    names: the inverse of ``checkpoint.convert_fastconformer_state_dict``'s."""
+    out["transf_decoder._embedding.token_embedding.weight"] = _cpu(aed["embed"])
+    _put_ln(out, "transf_decoder._embedding.layer_norm", aed["embed_norm"])
+    names = {"linear_q": "query_net", "linear_k": "key_net", "linear_v": "value_net",
+             "linear_out": "out_projection"}
+    for i, layer in enumerate(aed["layers"]):
+        pfx = f"transf_decoder._decoder.layers.{i}"
+        for n, (norm, att) in enumerate((("norm_self_att", "self_att"),
+                                         ("norm_cross_att", "cross_att")), start=1):
+            _put_ln(out, f"{pfx}.layer_norm_{n}", layer[norm])
+            sub = "first_sub_layer" if n == 1 else "second_sub_layer"
+            for key, name in names.items():
+                _put_lin(out, f"{pfx}.{sub}.{name}", layer[att][key])
+        _put_ln(out, f"{pfx}.layer_norm_3", layer["norm_ff"])
+        _put_lin(out, f"{pfx}.third_sub_layer.dense_in", layer["ff"]["linear1"])
+        _put_lin(out, f"{pfx}.third_sub_layer.dense_out", layer["ff"]["linear2"])
+    _put_ln(out, "transf_decoder._decoder.final_layer_norm", aed["final_norm"])
+    _put_lin(out, "log_softmax.mlp.layer0", aed["head"])
 
 
 def to_torch_state_dict(variables: Mapping[str, Any], config: ModelConfig | None = None,

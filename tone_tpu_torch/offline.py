@@ -15,14 +15,24 @@ A ``FastConformerConfig`` (an offline-only architecture) runs
 with zeros to a bucketed multiple of one output frame's samples, and go to
 the forward with their lengths, so that it computes each row as if alone;
 its phrases are split at the blank alone and decoded with its vocabulary;
-frames are 80 ms.  With a transducer (``config.transducer``) the forward is
-the encoder and the greedy TDT loop on the device
+frames are 80 ms.  With a transducer (``fastconformer_tdt``) the forward
+is the encoder and the greedy TDT loop on the device
 (``core.transducer.greedy_tdt``; on a card its steps replay as a CUDA
 graph, ``GraphedLoop``), and a batch comes back as the loop's record
 instead of logprobs: a phrase ends where 20 or more frames pass with no
 token and is cut at 2,000 frames (the splitter's frame counts), its pieces
 joined with the word-start mark read as a space, its times from the token
-frames.  The mesh and word times are T-one's only.
+frames.  With an attention decoder (``fastconformer_aed``) each call is
+first cut into consecutive windows of at most ``config.aed.window_seconds``,
+and the windows are the rows, sorted and batched as calls are; the forward
+is the encoder and the greedy decoder with its cache (``core.aed.greedy_aed``;
+replayed as a CUDA graph on a card, ``GraphedDecoder``), a batch comes back
+as the loop's record beside its windows (``_Windows``: each row's call and
+window, frames and cap, and the logits and cross-attention memory of the
+windows named in ``keep_logits``, which a check such as the benchmark's
+reads through ``_wait``), and each window with text gives one phrase,
+timed at the window's bounds, in call order.  The mesh and word times are
+T-one's only.
 
 Utterances are sorted by length and padded to a bucketed number of chunks;
 the zero chunks that pad a row are processed as audio, as the JAX
@@ -68,7 +78,7 @@ counts ``offline.audio_samples`` (the rows' own samples),
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import numpy as np
@@ -76,11 +86,17 @@ import torch
 
 from tone_tpu_torch import profiling
 from tone_tpu_torch.acoustic import cast_params_for_inference
-from tone_tpu_torch.config import LABELS, FastConformerConfig, ModelConfig
-from tone_tpu_torch.core import transducer
+from tone_tpu_torch.config import (
+    FASTCONFORMER_AED,
+    FASTCONFORMER_TDT,
+    LABELS,
+    FastConformerConfig,
+    ModelConfig,
+)
+from tone_tpu_torch.core import aed, transducer
 from tone_tpu_torch.core.fastconformer import apply_fastconformer, encode_fastconformer
 from tone_tpu_torch.core.model import apply_offline, apply_streaming, init_streaming_state
-from tone_tpu_torch.device import resolve_device
+from tone_tpu_torch.device import record_event, resolve_device
 from tone_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, replicate
 from tone_tpu_torch.pipeline import TextPhrase, phrase_times
 from tone_tpu_torch.splitter import StreamingLogprobSplitter
@@ -116,16 +132,6 @@ class _HostRing:
         self._events[slot] = events
 
 
-def _record_event(device: torch.device) -> list:
-    """An event recorded on ``device``'s current stream, in a list (empty
-    off a card, whose copies have finished when they return)."""
-    if device.type != "cuda":
-        return []
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return [event]
-
-
 @dataclass(frozen=True)
 class _Model:
     """What the transcriber does differently for each architecture, chosen
@@ -139,8 +145,29 @@ class _Model:
     splitter: StreamingLogprobSplitter
     labels: str | tuple[str, ...]  # the default greedy decoder's vocabulary
     # The transcriber's method (launched batch, results) that turns a batch
-    # into phrases, by name: split and decode logprobs, or a transducer's tokens.
+    # into phrases, by name: split and decode logprobs, or a decoder's tokens.
     finish: str = "_finish"
+    # On a card, the device loop that replays a decoder's steps as a CUDA
+    # graph: made from (variables, config); None where the head has none.
+    graphed: Callable | None = None
+    window: int = 0  # samples of the windows a call is cut into (0: whole calls)
+
+
+@dataclass
+class _Windows:
+    """An AED batch's rows beside its audio: each row's (call, window), its
+    encoder frames and cap, and the rows whose steps' logits the loop
+    keeps; once the forward is queued, the rows the loop computed and, by
+    (call, window) on the device, each kept row's logits (steps, V) float32
+    and the cross-attention keys and values its steps read
+    (``aed.greedy_aed``)."""
+
+    keys: list[tuple[int, int]]
+    frames: list[int]
+    caps: list[int]
+    keep: list[int]
+    rows: int = 0
+    kept: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -161,8 +188,8 @@ class OfflineTranscriber:
     def __post_init__(self):
         self._model = self._choose_model()
         if self._model.finish != "_finish" and self.decoder is not None:
-            raise ValueError("OfflineTranscriber: a transducer decodes on the device; "
-                             "decoder= takes a CTC decoder")
+            raise ValueError("OfflineTranscriber: a transducer or an attention decoder decodes "
+                             "on the device; decoder= takes a CTC decoder")
         if self.mesh is None:
             devices = [resolve_device(self.device)]
         else:
@@ -184,9 +211,13 @@ class OfflineTranscriber:
             cast_params_for_inference(self.variables, self.config), devices)))
         self.variables = self._shards[0][1]
         pinned = self.device.type == "cuda"
-        # a transducer's loop on a card: its steps replayed as a CUDA graph
-        self._graphed = (transducer.GraphedLoop(self.variables, self.config)
-                         if pinned and self._model.finish == "_finish_tokens" else None)
+        # a decoder's loop on a card: its steps replayed as a CUDA graph
+        self._graphed = (self._model.graphed(self.variables, self.config)
+                         if pinned and self._model.graphed is not None else None)
+        # The AED's windows whose steps' logits the loop keeps, as (call,
+        # window) of each ``transcribe``: a check's, such as the benchmark's.
+        self.keep_logits: set = set()
+        self._owners: list[tuple[int, int]] = []   # the rows of a call to transcribe
         self._staging = _HostRing(pinned)   # the batches' unpadded samples
         self._host_logprobs = _HostRing(pinned)   # the logprobs' copies back (a card's)
 
@@ -201,9 +232,13 @@ class OfflineTranscriber:
             # rows in output frames, split at the blank alone (a transducer's
             # at frames with no token)
             splitter = StreamingLogprobSplitter(cfg.vocab_size_with_blank, silence_classes=1)
-            if cfg.transducer is not None:
+            if cfg.architecture == FASTCONFORMER_TDT:
                 return _Model(1, self._assemble_calls, "_transducer_forward", splitter,
-                              cfg.vocabulary, "_finish_tokens")
+                              cfg.vocabulary, "_finish_tokens", transducer.GraphedLoop)
+            if cfg.architecture == FASTCONFORMER_AED:
+                window = round(cfg.aed.window_seconds * cfg.frontend.sample_rate)
+                return _Model(1, self._assemble_windows, "_aed_forward", splitter,
+                              cfg.vocabulary, "_finish_aed", aed.GraphedDecoder, window)
             return _Model(1, self._assemble_calls, "_fastconformer_forward", splitter,
                           cfg.vocabulary)
         # rows in chunks, split at the space and the blank
@@ -239,21 +274,49 @@ class OfflineTranscriber:
         enc, frames = encode_fastconformer(variables, self.config, audio, lengths)
         return transducer.greedy_tdt(variables, self.config, enc, frames, self._graphed)
 
+    def _aed_forward(self, variables, batch) -> torch.Tensor:
+        """((B, T_samples) windows, their host lengths, their ``_Windows``)
+        -> the greedy decoder's record (B, steps, fields); the rows computed
+        and the kept rows' logits go to the ``_Windows``."""
+        audio, lengths, windows = batch
+        enc, frames = encode_fastconformer(variables, self.config, audio, lengths)
+        record, logits, memory = aed.greedy_aed(variables, self.config, enc, frames,
+                                                windows.caps, windows.keep, self._graphed)
+        windows.rows = self._graphed.rows if self._graphed is not None else len(frames)
+        windows.kept = {windows.keys[row]: kept
+                        for row, kept in zip(windows.keep, zip(logits, memory))}
+        return record
+
     def transcribe(self, audios: Sequence[np.ndarray]) -> list[list[TextPhrase]]:
         """Transcribe utterances (int16-range integer arrays); order kept."""
-        results: list[list[TextPhrase] | None] = [None] * len(audios)
+        window = self._model.window
+        # this call's rows as (call, window): each call's windows, in order
+        self._owners = [(i, k) for i, a in enumerate(audios)
+                        for k in range(max(-(-len(a) // window), 1))] if window else []
+        rows = [audios[i][k * window:(k + 1) * window] for i, k in self._owners] \
+            if window else audios
+        results: list = [None] * len(rows)
         finish = getattr(self, self._model.finish)
-        self._pipelined(audios, lambda launched: finish(launched, results))
-        return results  # type: ignore[return-value]
+        self._pipelined(rows, lambda launched: finish(launched, results))
+        if not window:
+            return results
+        calls: list[list[TextPhrase]] = [[] for _ in audios]
+        rate = self.config.frontend.sample_rate
+        for (i, k), piece, text in zip(self._owners, rows, results):
+            if text:
+                start = k * window
+                calls[i].append(TextPhrase(text, round(start / rate, 2),
+                                           round((start + len(piece)) / rate, 2)))
+        return calls
 
     def logprobs(self, audios: Sequence[np.ndarray]) -> list[np.ndarray]:
         """Per-utterance (frames, vocab+1) float32 logprobs, batched and
         bucketed as in ``transcribe`` but not split or decoded: the acoustic
         half of forced alignment (``python -m tone_tpu_torch align``).  A
-        transducer has none."""
+        transducer or an attention decoder has none."""
         if self._model.finish != "_finish":
-            raise ValueError("OfflineTranscriber.logprobs: a transducer gives tokens, not "
-                             "per-frame logprobs")
+            raise ValueError("OfflineTranscriber.logprobs: a transducer or an attention "
+                             "decoder gives tokens, not per-frame logprobs")
         out: list[np.ndarray | None] = [None] * len(audios)
 
         def finish(launched):
@@ -295,7 +358,7 @@ class OfflineTranscriber:
             events = []
             for k, lp in enumerate(logprobs):
                 host[k * per:(k + 1) * per].copy_(lp, non_blocking=True)
-                events += _record_event(lp.device)
+                events += record_event(lp.device)
             self._host_logprobs.guard(batch % 2, events)
         return idx, row_chunks, host, events, batch
 
@@ -318,6 +381,17 @@ class OfflineTranscriber:
             profiling.count("offline.audio_samples", sum(len(a) for a in calls))
             profiling.count("offline.padded_samples", n_rows * n_chunks * chunk)
         return row_chunks, [r.view(r.shape[0], n_chunks, chunk) for r in rows]
+
+    def _assemble_windows(self, idx, audios, batch) -> tuple[_Windows, list[tuple]]:
+        """An AED batch of windows: ``_assemble_calls``' rows, with their
+        ``_Windows`` (each row's cap of tokens, the rows whose logits are
+        kept) in the place of the rows' frames."""
+        row_frames, [(audio, lengths)] = self._assemble_calls(idx, audios, batch)
+        a, rate = self.config.aed, self.config.frontend.sample_rate
+        keys = [self._owners[i] for i in idx]
+        windows = _Windows(keys, row_frames, [a.max_tokens(int(n), rate) for n in lengths],
+                           [row for row, key in enumerate(keys) if key in self.keep_logits])
+        return windows, [(audio, lengths, windows)]
 
     def _assemble_calls(self, idx, audios, batch) -> tuple[list[int], list[tuple]]:
         """A FastConformer batch: (each row's output frames, [((B, samples)
@@ -358,7 +432,7 @@ class OfflineTranscriber:
         for k, (dev, _) in enumerate(self._shards):
             first, last = min(k * per, len(calls)), min((k + 1) * per, len(calls))
             sent = staged[ends[first]:ends[last]].to(dev, non_blocking=True)
-            events += _record_event(dev)
+            events += record_event(dev)
             out = torch.zeros((per, width), dtype=dtype, device=dev)
             for r in range(first, last):
                 out[r - k * per, offset:offset + len(calls[r])].copy_(
@@ -430,6 +504,17 @@ class OfflineTranscriber:
                     phrases.append(TextPhrase(transducer.tokens_text(inside, cfg.vocabulary),
                                               *phrase_times(cfg, start, end)))
                 results[i] = phrases
+
+    def _finish_aed(self, launched, results) -> None:
+        """An AED's launched batch of windows: each window's emitted tokens
+        before ``eos``, its pieces joined (``transcribe`` times them)."""
+        idx, windows, record = self._wait(launched)
+        cfg = self.config
+        aed.count_steps(cfg, record, windows.frames, windows.rows)
+        with profiling.span("offline.split", launched[-1]):
+            for row, i in enumerate(idx):
+                results[i] = transducer.tokens_text(aed.emitted(record[row], cfg.aed.eos),
+                                                    cfg.vocabulary)
 
     def forward_offline(self, audio: np.ndarray) -> list[TextPhrase]:
         """One utterance; duck-types ``StreamingCTCPipeline`` (so
