@@ -249,10 +249,27 @@ prints one JSON line per phase:
             replays, so the host calls it 129 + 25 times a batch), B3 32
             times an encoder forward, counted on the card by the profiler.
 
+22. activation_pass  kernel B5 (``ops/activation_pass.py``) at the Parakeet
+            cell's four batches (``dev/torch_activation_pass_ab.py``: 16 rows of
+            the batch's longest frames, d_model 1,024, d_ff 4,096, conv kernel
+            9, every row computed) in each of its three forms (silu, glu,
+            bn_silu): held to its plain version within the card tests' limits
+            (at most one bf16 ulp, at a share under 1e-5), its device time
+            per launch (profiler) beside its bound (bytes at 3.35 TB/s), the
+            plain version's time and, as a yardstick only, ``F.silu`` or
+            ``F.glu`` on the biased bf16 input; at each batch the
+            feed-forward and the convolution module around the passes against
+            the eager chains they replaced, and no dynamic-cast
+            ``elementwise_kernel<128, 4>`` or ``direct_copy`` kernel between
+            their products; then ``FastConformerConfig()``,
+            ``parakeet_tdt_config()`` and ``canary_config()`` (random weights,
+            seed 0) through ``OfflineTranscriber`` on one batch each, counted
+            from zero: 4 launches a layer, 168, 96 and 128 an encoder forward.
+
 ``--phases`` runs a subset after the build (for development; the kernel
 summary line holds B1 where the kernels, serve and bulk phases ran, B2
 where fused_kernels and fused_step ran, B3 where rel_attention ran, B4
-where norm_junction ran).
+where norm_junction ran, B5 where activation_pass ran).
 Every phase line after ``device`` gives the phase's seconds as
 ``phase_s``.  Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code non-zero); without a GPU, or without the
@@ -3347,9 +3364,63 @@ def _aed_launches(NJ, RA) -> dict:
     return out
 
 
+ACTIVATION_PASS_ITERS = 50
+
+
+def phase_activation_pass() -> dict:
+    """B5 at the Parakeet cell's batches, the sublayers around it, then in
+    full-width forwards (see the module docstring, 22)."""
+    import importlib.util
+
+    import torch
+
+    from tone_tpu_torch.config import FastConformerConfig, canary_config, parakeet_tdt_config
+    from tone_tpu_torch.core.fastconformer import init_fastconformer_params
+    from tone_tpu_torch.offline import OfflineTranscriber
+    from tone_tpu_torch.ops import activation_pass as AP
+
+    path = Path(__file__).resolve().parent / "dev" / "torch_activation_pass_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_activation_pass_ab", path)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    batches = ab.cell_batches()
+    cases = ab.time_cases(batches, [0, 1, 2, 3], ACTIVATION_PASS_ITERS)
+    for case in cases:
+        if not case["within_limits"]:
+            raise AssertionError(f"activation_pass {case['form']} at {case['frames']} frames: "
+                                 f"{case}")
+    chains = ab.chain_cases(batches, [0, 1, 2, 3], 10)
+    for chain in chains:
+        if chain["leftover"]:
+            raise AssertionError(f"activation_pass: eager passes left between the products at "
+                                 f"{chain['frames']} frames: {chain['leftover']}")
+        del chain["kernels"], chain["eager_kernels"]
+    rng = np.random.default_rng(0)
+    forwards = {}
+    for name, cfg in (("ctc", FastConformerConfig()), ("tdt", parakeet_tdt_config()),
+                      ("canary", canary_config())):
+        variables = init_fastconformer_params(torch.Generator().manual_seed(0), cfg)
+        calls = [rng.integers(-8000, 8000, n).astype(np.int16)
+                 for n in rng.integers(5 * 16000, 39 * 16000, 4)]
+        tr = OfflineTranscriber(variables, cfg, batch_size=16, use_offline_forward=True)
+        AP.launches = 0
+        tr.transcribe(calls)
+        if AP.launches != 4 * cfg.encoder.n_layers:
+            raise AssertionError(f"activation_pass: {AP.launches} launches in a {name} forward "
+                                 f"of {cfg.encoder.n_layers} layers")
+        forwards[name] = {"launches": AP.launches, "calls": len(calls),
+                          "layers": cfg.encoder.n_layers}
+        del tr, variables
+        torch.cuda.empty_cache()
+    return {"phase": "activation_pass", "kernel": "activation_pass", "d_model": ab.D_MODEL,
+            "d_ff": ab.D_FF, "ms": "device time per launch (torch.profiler), back to back",
+            "cases": cases, "chains": chains, "forwards": forwards}
+
+
 PHASES = ("kernels", "step", "artifacts", "serve", "fused_kernels", "fused_step", "beam_decode",
           "serve_beam", "serve_fused", "serve_host_beam", "bulk", "train", "parallel",
-          "recipes", "bench", "deploy", "hub", "rel_attention", "norm_junction")
+          "recipes", "bench", "deploy", "hub", "rel_attention", "norm_junction",
+          "activation_pass")
 
 
 def kernel_summary(out: dict) -> dict:
@@ -3364,6 +3435,8 @@ def kernel_summary(out: dict) -> dict:
         lines.append(_rel_attention_line(out["rel_attention"]))
     if "norm_junction" in out:
         lines.append(_norm_junction_line(out["norm_junction"]))
+    if "activation_pass" in out:
+        lines.append(_activation_pass_line(out["activation_pass"]))
     return {"kernels": lines}
 
 
@@ -3467,6 +3540,24 @@ def _norm_junction_line(phase: dict) -> dict:
         "aed_launches": {k: phase["aed"][k] for k in ("per", "steps", "norm_junction_device",
                                                       "norm_junction_host")}
         if "aed" in phase else None}
+
+
+def _activation_pass_line(phase: dict) -> dict:
+    # The silu form at the longest batch: half of a layer's launches and
+    # most of their bytes.
+    case = max((c for c in phase["cases"] if c["form"] == "silu"), key=lambda c: c["frames"])
+    return {
+        "name": "activation_pass", "route": "cuda",
+        "source": "tone_tpu_torch/csrc/activation_pass.cu", "replaces": None,
+        "launches": phase["forwards"]["ctc"]["launches"],
+        "max_ulps": max(c["max_ulps"] for c in phase["cases"]),
+        **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                                "library_ms")},
+        "shape": f"16 rows x {case['frames']} frames, d_ff 4,096, silu form",
+        "cases": [{k: c[k] for k in ("frames", "form", "ms", "bound_ms", "bound_share",
+                                     "plain_ms", "library_ms", "max_ulps", "share_one_ulp")}
+                  for c in phase["cases"]],
+        "forwards": phase["forwards"]}
 
 
 def run_phase(fn, *args) -> dict:

@@ -500,7 +500,11 @@ def test_spans_and_counters_under_record():
         "fastconformer.attention_pairs": 2 * sum(n * n for n in out_lens),
         "fastconformer.attention_pairs_computed":
             2 * keys * sum((hi - lo) * (i1 - i0) for i0, i1, lo, hi in blocks),
-        "fastconformer.junction_bytes": sum(out_lens) * 64 * (4 + 2 * 30 + 10 + 8)}
+        "fastconformer.junction_bytes": sum(out_lens) * 64 * (4 + 2 * 30 + 10 + 8),
+        # the activation passes' bytes of the valid frames: per frame and
+        # layer two silu passes over d_ff 256 (6 each), glu (10) and
+        # bn_silu (4) over d_model 64
+        "fastconformer.activation_bytes": sum(out_lens) * 2 * (2 * 6 * 256 + 14 * 64)}
     assert counts["fastconformer.attention_pairs"] <= \
         counts["fastconformer.attention_pairs_computed"]
 

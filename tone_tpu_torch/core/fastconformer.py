@@ -27,7 +27,12 @@ Between sublayers the junction (``ops/norm_junction.py``) takes the
 sublayer's last product without its bias and does the bias, the 1/2, the
 residual add and the next LayerNorm (after FF2: ``LN_out``, then the next
 layer's ``LN_ff1``) in one pass: one kernel launch on the card, the eager
-composition on the CPU.
+composition on the CPU.  Inside the feed-forwards and the convolution
+module the activation passes (``ops/activation_pass.py``) take each
+product without its bias and write the next product's input: SiLU after
+``linear1``; GLU, the length mask and the edge zeros after ``pw1``, as the
+depthwise convolution's input; the convolution's bias, BatchNorm and SiLU
+as ``pw2``'s input.
 
 Each row is computed as if it were alone: the forward takes every row's
 length, the frontend normalizes over the row's own frames, the
@@ -47,7 +52,9 @@ around their dispatch, and the counts ``fastconformer.frames`` (the rows'
 valid output frames) and ``fastconformer.attention_pairs`` (the sum over
 rows and layers of valid frames squared), and ``fastconformer.junction_bytes``
 (the bytes the junctions must move for the rows' valid frames,
-``norm_junction.layer_bytes`` per element of d_model); each layer's
+``norm_junction.layer_bytes`` per element of d_model) and
+``fastconformer.activation_bytes`` (the bytes the activation passes must
+move for them, ``activation_pass.layer_bytes`` per frame and layer); each layer's
 attention counts ``fastconformer.attention_pairs_computed``, the
 query-key pairs its path computed (``layers.rel_attention_context``).
 """
@@ -59,7 +66,6 @@ from typing import Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tone_tpu_torch import profiling
 from tone_tpu_torch.config import FASTCONFORMER_CTC, FASTCONFORMER_TDT, FastConformerConfig
@@ -67,6 +73,7 @@ from tone_tpu_torch.core import aed
 from tone_tpu_torch.core import layers as L
 from tone_tpu_torch.core.frontend import get_frontend_constants, log_mel_centered
 from tone_tpu_torch.core.transducer import init_transducer_params
+from tone_tpu_torch.ops import activation_pass
 from tone_tpu_torch.ops.norm_junction import layer_bytes, layer_norm, norm_junction
 
 __all__ = ["apply_fastconformer", "encode_fastconformer", "init_fastconformer_params",
@@ -180,25 +187,31 @@ def _subsampling(p: Params, config: FastConformerConfig, feats: torch.Tensor,
 
 def _feed_forward(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
     """The feed-forward up to its last product, without that product's
-    bias (float32): the junction after it adds the bias."""
-    return L.linear_product(p["linear2"], L.silu(L.linear(p["linear1"], x, dtype)), dtype)
+    bias (float32): the activation pass adds linear1's bias and applies
+    SiLU, the junction after it adds linear2's bias."""
+    h = activation_pass.silu(L.linear_product(p["linear1"], x, dtype), p["linear1"]["b"], dtype)
+    return L.linear_product(p["linear2"], h, dtype)
 
 
-def _conv_module(p: Params, stats: Params, x: torch.Tensor, pad: torch.Tensor,
+def _conv_module(p: Params, stats: Params, x: torch.Tensor, lengths: torch.Tensor,
                  kernel: int, dtype) -> torch.Tensor:
     """The convolution module up to its last product, without that
-    product's bias (float32)."""
-    y = L.glu(L.linear(p["pw1"], x, dtype), dim=-1).masked_fill_(pad[:, :, None], 0.0)
-    y = F.pad(y, (0, 0, (kernel - 1) // 2, (kernel - 1) // 2))
-    y = L.conv1d_nhc(p["dw"], y, stride=1, groups=y.shape[-1], compute_dtype=dtype)
-    y, _ = L.batchnorm(p["bn"], stats, y, channel_axis=2)
-    return L.linear_product(p["pw2"], L.silu(y), dtype)
+    product's bias (float32).  The activation passes write the depthwise
+    convolution's (B, d, frames) input (GLU, the length mask, the edge
+    zeros) and pw2's (B, T, d) input (the convolution's bias, batch norm,
+    SiLU); the convolution runs without its bias."""
+    d = x.shape[-1]
+    y = activation_pass.glu(L.linear_product(p["pw1"], x, dtype), p["pw1"]["b"], lengths,
+                            kernel, dtype)
+    y = L.conv1d_nhc({"w": p["dw"]["w"]}, y.transpose(1, 2), stride=1, groups=d,
+                     compute_dtype=dtype).transpose(1, 2)
+    y = activation_pass.bn_silu(y, p["dw"]["b"], p["bn"], stats, x.shape[1])
+    return L.linear_product(p["pw2"], y, dtype)
 
 
 def _layer(p: Params, stats: Params, x: torch.Tensor, h: torch.Tensor, pos: torch.Tensor,
-           lengths: torch.Tensor, pad: torch.Tensor, host_lengths: list[int],
-           config: FastConformerConfig, dtype, next_norm: Params | None,
-           ) -> tuple[torch.Tensor, torch.Tensor | None]:
+           lengths: torch.Tensor, host_lengths: list[int], config: FastConformerConfig,
+           dtype, next_norm: Params | None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer on the residual stream ``x`` and ``h``, its first input
     (``LN_ff1(x)``, which the junction before made).  Each sublayer ends in
     its bias-less product; the junction (``ops/norm_junction.py``) adds the
@@ -213,8 +226,9 @@ def _layer(p: Params, stats: Params, x: torch.Tensor, h: torch.Tensor, pos: torc
                                   host_lengths=host_lengths, compute_dtype=dtype)
     x, h = norm_junction(L.linear_product(p["att"]["linear_out"], ctx, dtype),
                          p["att"]["linear_out"]["b"], x, 1.0, p["norm_conv"])
-    x, h = norm_junction(_conv_module(p["conv"], stats["conv_bn"], h, pad, e.conv_kernel_size,
-                                      dtype), p["conv"]["pw2"]["b"], x, 1.0, p["norm_ff2"])
+    x, h = norm_junction(_conv_module(p["conv"], stats["conv_bn"], h, lengths,
+                                      e.conv_kernel_size, dtype),
+                         p["conv"]["pw2"]["b"], x, 1.0, p["norm_ff2"])
     return norm_junction(_feed_forward(p["ff2"], h, dtype), p["ff2"]["linear2"]["b"], x, 0.5,
                          p["norm_out"], next_norm, layer_end=True)
 
@@ -268,20 +282,21 @@ def encode_fastconformer(variables: dict, config: FastConformerConfig, audio: to
         x = _subsampling(enc["pre_encode"], config, feats, frame_lens, dtype)
         x = x * math.sqrt(e.d_model)
         out_dev = _to_device(torch.tensor(out_lens, dtype=torch.int64), dev)
-        pad = _padding(out_dev, x.shape[1])
         pos = positional_encoding(longest, e.d_model, dev)
         layers = enc["layers"]
         h = layer_norm(x, layers[0]["norm_ff1"])
     for i, (p, stats) in enumerate(zip(layers, variables["batch_stats"]["layers"])):
         with profiling.span("fastconformer.layer", i):
             next_norm = layers[i + 1]["norm_ff1"] if i + 1 < len(layers) else None
-            x, h = _layer(p, stats, x, h, pos, out_dev, pad, out_lens, config, dtype, next_norm)
+            x, h = _layer(p, stats, x, h, pos, out_dev, out_lens, config, dtype, next_norm)
     if profiling.recording():
         profiling.count("fastconformer.frames", sum(out_lens))
         profiling.count("fastconformer.attention_pairs",
                         e.n_layers * sum(n * n for n in out_lens))
         profiling.count("fastconformer.junction_bytes",
                         sum(out_lens) * e.d_model * layer_bytes(len(layers)))
+        profiling.count("fastconformer.activation_bytes",
+                        sum(out_lens) * e.n_layers * activation_pass.layer_bytes(e.d_model, e.d_ff))
     return x, out_lens
 
 
